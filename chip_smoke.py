@@ -10,7 +10,8 @@ Without a CUDA device, or without the rest of the repository beside it,
 it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
   * one JSON line {"kernels": [...], "off_path": [...]}: per kernel its
-    launches in the main-path render and its measured error and times,
+    launches in the main-path render, its measured error and times, and
+    its bound (the work its inputs need at the card's published peaks),
   * {"ok": true, "device": {...}} as the last line.
 """
 
@@ -40,6 +41,13 @@ from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 DEV = torch.device("cuda")
 SIZE, SPP, MAX_BOUNCES, RR = 1024, 16, 50, 8  # the main path's render
 OUT = os.path.join(ROOT, "chiprun_out")
+# published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
+# outside the tensor cores, HBM3 bandwidth
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# float32 operations of one slab test (6 sub, 6 mul, 10 min/max, max with
+# 0, 3 compares + and) and of one Moller-Trumbore pair (cross products, dot
+# products, the reciprocal, 6 tests)
+SLAB_FLOPS, MT_FLOPS = 27, 56
 
 
 def phase(name):
@@ -66,6 +74,13 @@ def ulp_gap(a, b):
     ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
     ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
     return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def bound(flops, nbytes):
+    """Least milliseconds for the work at the card's published peaks, and
+    which of the two bounds it."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def require_equal(name, got, want):
@@ -143,7 +158,11 @@ n_hit = int((out_k[0] < 3.0e38).sum())
 assert n_hit > 1000, f"winner_step inputs produced only {n_hit} hits"
 ws_ms = cuda_ms(lambda: step_kernel.winner_step(rows, comps, live, slots), 20)
 ws_plain_ms = cuda_ms(lambda: step_kernel.winner_step_plain(rows, comps, live, slots), 5)
-print(f"equal on all 6 channels ({n_hit} hit lanes); kernel {ws_ms:.4f} ms, twin {ws_plain_ms:.4f} ms")
+# every (lane, pair) is tested, the live mask only masks
+ws_bound_ms, ws_bound_by = bound(
+    sz * p * rl * MT_FLOPS, 4 * (sz * p * (8 + 6) + sz * rl * (13 + 2)))
+print(f"equal on all 6 channels ({n_hit} hit lanes); kernel {ws_ms:.4f} ms, twin {ws_plain_ms:.4f} ms; "
+      f"bound {ws_bound_ms:.4f} ms ({ws_bound_by}), {ws_bound_ms / ws_ms:.1%} of it")
 
 # --- 3 -------------------------------------------------------------------
 phase("3 treelet_closest_hit vs twin on bunny.json, 1024^2")
@@ -161,21 +180,38 @@ def sphere_seed(ro, rd, t_min, active):
 
 
 def compare_sweep(label, ro, rd, t_min, active):
+    """The kernel against its twin on one packed batch, all six outputs
+    exact; the work the twin's loop counts, the bound and the times."""
     t_seed = sphere_seed(ro, rd, t_min, active)
-    call = lambda ch: packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active,
-                                                 closest_hit=ch)
-    tk, sk, ek = call(sweep_kernel.treelet_closest_hit)
-    tp, sp, ep = call(sweep_kernel.treelet_closest_hit_plain)
+    rows, act_p = packets._pack_rows(ro, rd, t_min, t_seed, active)
+    args = (rows, act_p, scene.tre_min, scene.tre_max, scene.tre_tris, L)
+    out_k = sweep_kernel.treelet_closest_hit(*args)
+    work = {}
+    out_p = sweep_kernel.treelet_closest_hit_plain(*args, stats=work)
     torch.cuda.synchronize()
-    hit = sk >= 0
-    require_equal(f"treelet_closest_hit {label}", (sk, tk, ek["obj"], ek["nx"], ek["ny"], ek["nz"]),
-                  (sp, tp, ep["obj"], ep["nx"], ep["ny"], ep["nz"]))
-    err = float((tk[hit] - tp[hit]).abs().max()) if bool(hit.any()) else 0.0
-    ms = cuda_ms(lambda: call(sweep_kernel.treelet_closest_hit), 5)
-    plain_ms = cuda_ms(lambda: call(sweep_kernel.treelet_closest_hit_plain), 2)
-    print(f"{label}: {int(active.sum())} live rays, {int(hit.sum())} mesh hits, slot/obj/hit/t "
-          f"equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, hits=int(hit.sum()))
+    require_equal(f"treelet_closest_hit {label}", out_k, out_p)
+    hit = out_k[1] >= 0
+    err = float((out_k[0][hit] - out_p[0][hit]).abs().max()) if bool(hit.any()) else 0.0
+    ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit(*args), 20)
+    # the whole intersect_treelets call, packing included
+    call_ms = cuda_ms(lambda: packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active), 20)
+    plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args), 2)
+    lanes = act_p.numel()
+    flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
+    # each input read once (8 f32 rows + act per lane, boxes and blocks per
+    # treelet), each of the 6 outputs written once
+    nbytes = lanes * (8 * 4 + 1 + 6 * 4) + K * (6 + 13 * L) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"{label}: {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
+          f"{int(hit.sum())} mesh hits; all 6 outputs equal to the twin")
+    print(f"  work: {work['supers_hit']} supers hit, {work['slab_tests']} slab tests, "
+          f"{work['visits']} treelet visits (at most {work['visits_max']} in a packet), "
+          f"{work['mt_pairs']} MT pairs = {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+    print(f"  kernel {ms:.4f} ms (intersect_treelets call {call_ms:.4f} ms), twin {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{bound_ms / ms:.1%} of it")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, hits=int(hit.sum()), work=work, gflop=flops / 1e9)
 
 
 t_min = torch.full((n,), 1e-4, device=DEV)
@@ -226,6 +262,23 @@ print(f"calls 2-4: {', '.join(f'{w:.3f}' for w in walls)} s wall; median {wall:.
 os.makedirs(OUT, exist_ok=True)
 np.save(os.path.join(OUT, "bunny_1024_16spp.npy"),
         img.reshape(SIZE, SIZE, 3).cpu().numpy().astype(np.float16))
+# device time of one more render, by kernel (torch.profiler over CUPTI)
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=SPP, max_bounces=MAX_BOUNCES,
+                             rr_start=RR, device=DEV)
+    torch.cuda.synchronize()
+kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+with open(os.path.join(OUT, "render_profile.txt"), "w") as fh:
+    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+sweep = [e for e in kern if "treelet_closest_hit_kernel" in e.key]
+sweep_ms = sum(e.self_device_time_total for e in sweep) / 1e3
+if busy_ms > 0:
+    print(f"profiled render: device busy {busy_ms:.1f} ms = {busy_ms / 1e3 / wall:.1%} of the median "
+          f"wall; treelet_closest_hit_kernel {sweep_ms:.1f} ms in {sum(e.count for e in sweep)} "
+          f"launches = {sweep_ms / busy_ms:.1%} of busy; {sum(e.count for e in kern)} kernels")
+else:
+    print("profiled render: the profiler recorded no device time (not measured)")
 
 # --- 5 -------------------------------------------------------------------
 phase("5 render parity, kernel vs twin: 256^2, 2 spp, 8 bounces")
@@ -249,10 +302,12 @@ report = {
         replaces="tpupt/accel/pallas_sweep.py:54",
         launches=launches["treelet_closest_hit"],
         max_abs_err=max(primary["max_abs_err"], secondary["max_abs_err"]),
-        ms=primary["ms"], plain_ms=primary["plain_ms"],
-        secondary_ms=secondary["ms"], secondary_plain_ms=secondary["plain_ms"],
+        # the top-level times are the 1024^2 primaries'
+        ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
+        bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
+        inputs={"primaries": primary, "secondaries": secondary},
     )],
-    # not launched by the main path, which runs its MT-and-fold routine
+    # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
     "off_path": [dict(
         name="winner_step", route="cuda",
@@ -260,9 +315,11 @@ report = {
         replaces="tpupt/accel/pallas_step.py:64",
         launches=launches["winner_step"],
         max_abs_err=float((out_k[0] - out_p[0]).abs().max()), ms=ws_ms, plain_ms=ws_plain_ms,
+        bound_ms=ws_bound_ms, bound_by=ws_bound_by, library_ms=None,
     )],
     "render": dict(rays=rays, wall_s=wall, walls_s=walls, mrays_per_s=rays / wall / 1e6,
-                   first_call_s=first_s),
+                   first_call_s=first_s, profiled_device_busy_ms=busy_ms,
+                   profiled_sweep_ms=sweep_ms),
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
     config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR)

@@ -6,7 +6,11 @@ sin, cos) whose float32 implementations differ in the last bit between
 XLA's CPU backend and torch; hence rtol 1e-6, atol 1e-7.
 """
 
+import ast
+import glob
+import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -54,6 +58,64 @@ def test_import_keeps_jax_out():
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT, timeout=120)
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "tpupt_torch")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    tools = glob.glob(os.path.join(ROOT, "experiments", "torch_*.py"))
+    return sorted(paths) + [os.path.join(ROOT, "chip_smoke.py")] + sorted(tools)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_source_stays_off_the_jax_package(path):
+    """No module of the port, not chip_smoke.py and no port script under
+    experiments/ imports jax or tpupt or
+    names a path under tpupt/ (a "tpupt" path component, or a file path
+    such as "tpupt/native/x.cpp"; a "file:line" citation is no path)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            names = []
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "tpupt"), (path, name)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not re.fullmatch(r"tpupt(/[\w.\-]+)*/?", node.value), (path, node.value)
+
+
+def test_native_builder_source_lives_in_the_port():
+    from tpupt_torch.accel import native
+
+    pkg = os.path.join(ROOT, "tpupt_torch") + os.sep
+    assert os.path.abspath(native._SOURCE).startswith(pkg)
+    assert os.path.isfile(native._SOURCE)
+
+
+def test_entry_points_default_to_the_card():
+    """Scenes are built on the card unless the caller names a device; with
+    no card the build raises instead of falling back to the CPU.  The
+    render follows the scene's device."""
+    from tpupt_torch.core.types import scene_from_numpy
+    from tpupt_torch.render.integrator import render_image
+    from tpupt_torch.scene.description import SceneDescription
+
+    sig = inspect.signature
+    assert sig(SceneDescription.build).parameters["device"].default == "cuda"
+    assert sig(scene_from_numpy).parameters["device"].default == "cuda"
+    assert sig(render_image).parameters["device"].default is None
+    d = SceneDescription()
+    d.add_material("m", "lambertian", albedo=(1, 1, 1))
+    d.add_sphere(1.0, np.eye(4), "m")
+    if torch.cuda.is_available():
+        assert d.build().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            d.build()
 
 
 def test_wang_hash_bit_equal():

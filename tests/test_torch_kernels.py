@@ -43,6 +43,64 @@ def ico():
     return d.build(device="cpu")
 
 
+def _icospheres(subdiv, offsets):
+    v, f = icosphere(subdiv)
+    d = SceneDescription()
+    d.add_material("m", "lambertian", albedo=(0.7, 0.7, 0.7))
+    d.add_mesh("mesh", v, f)
+    for off in offsets:
+        d.add_mesh_object("mesh", np.asarray(m3.mat_translate(off)), "m")
+    return d.build(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def big():
+    """K = 172 treelets: the kernel and the twin run the two-level cull."""
+    scene = _icospheres(3, ([0, 0, 0], [1.5, 0.3, -1], [-1.4, -0.2, -0.6]))
+    assert scene.tre_min.shape[0] >= packets._TWOLEVEL_MIN_K
+    return scene
+
+
+def super_plane_rays(tre_min, tre_max, centre=(0.1, 0.05, -0.3)):
+    """(n, 6) float32 rays (origin, direction) with a zero direction
+    component that start exactly on a super-box plane and travel within it
+    towards ``centre``: the input where a super-box slab test is NaN (the
+    two-level cull's caveat, ``tpupt/accel/packets.py`` _entry_twolevel)."""
+    sup_min, sup_max = (b.cpu().numpy() for b in packets._super_boxes(tre_min, tre_max))
+    centre = np.asarray(centre)
+    rays = []
+    for s in range(sup_min.shape[0]):
+        for axis in range(3):
+            for bound in (sup_min[s, axis], sup_max[s, axis]):
+                for sign in (1.0, -1.0):
+                    o = centre.copy()
+                    o[(axis + 1) % 3] += 3.0 * sign
+                    o[axis] = bound
+                    d = centre - o
+                    d[axis] = 0.0
+                    rays.append(np.concatenate([o, d / np.linalg.norm(d)]))
+    return np.asarray(rays, np.float32)
+
+
+def tie_grid_scene(instances, n=12, device="cpu"):
+    """test_tie_breaking.py's planar n x n grid of unit squares at z = 0, as
+    `instances` coplanar copies (16 treelets each at n = 12)."""
+    xs, ys = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+    pos = np.stack([xs.ravel(), ys.ravel(), np.zeros(xs.size)], axis=1).astype(np.float32)
+    vid = lambda i, j: i * (n + 1) + j
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i, j + 1), vid(i + 1, j + 1)
+            tris += [[a, c, b], [b, c, d]]
+    desc = SceneDescription()
+    desc.add_material("m", "lambertian", albedo=(1, 1, 1))
+    desc.add_mesh("grid", pos, np.asarray(tris, np.int32))
+    for _ in range(instances):
+        desc.add_mesh_object("grid", np.eye(4), "m")
+    return desc.build(device=device)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -103,10 +161,9 @@ def test_twin_agrees_across_packet_layouts(ico):
     assert int((slot >= 0).sum()) > 50
 
 
-@pytest.mark.cuda
-def test_treelet_closest_hit_kernel_equals_twin(ico, cuda_device):
-    scene = ico.to(cuda_device)
-    ro, rd, t_min, t_seed, active = _rays(64, cuda_device)
+def _kernel_equals_twin(scene, ro, rd, t_min, t_seed, active):
+    """One kernel launch against the twin on the same rays: all six
+    channels exactly equal.  Returns the kernel's slots and extras."""
     before = sweep_kernel.treelet_closest_hit.launches
     tk, sk, ek = packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active)
     tp, sp, ep = packets.intersect_treelets(
@@ -118,7 +175,68 @@ def test_treelet_closest_hit_kernel_equals_twin(ico, cuda_device):
     assert torch.equal(sk, sp) and torch.equal(tk, tp)
     for key in ("nx", "ny", "nz", "obj"):
         assert torch.equal(ek[key], ep[key]), key
+    return sk, ek
+
+
+@pytest.mark.cuda
+def test_treelet_closest_hit_kernel_equals_twin(ico, cuda_device):
+    sk, _ = _kernel_equals_twin(ico.to(cuda_device), *_rays(64, cuda_device))
     assert int((sk >= 0).sum()) > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live", [1, 37, 256])
+@pytest.mark.parametrize("scene_name", ["ico", "big"])
+def test_kernel_equals_twin_by_live_lanes(request, scene_name, n_live, cuda_device):
+    """Dense (K < 96) and two-level (K >= 96) culls, with n_live live lanes
+    in every packet."""
+    scene = request.getfixturevalue(scene_name).to(cuda_device)
+    ro, rd, t_min, t_seed, _ = _rays(32, cuda_device)
+    n = ro.x.shape[0]
+    r = np.random.default_rng(n_live)
+    act = np.zeros(n, bool)
+    for p0 in range(0, n, 256):
+        m = min(256, n - p0)
+        act[p0 + r.choice(m, min(n_live, m), replace=False)] = True
+    sk, _ = _kernel_equals_twin(scene, ro, rd, t_min, t_seed, torch.from_numpy(act).to(cuda_device))
+    assert int((sk >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instances", [2, 12, 40])
+def test_kernel_equals_twin_on_tie_grid(instances, cuda_device):
+    """Coplanar copies of a planar grid tie bit-exactly on every hit; the
+    last instance is visited last and wins (K = 32 dense, K = 192 and 640
+    two-level; at 640 a packet has more finite entries than the block has
+    threads, so the kernel compacts and sorts them in several chunks)."""
+    scene = tie_grid_scene(instances, device=cuda_device)
+    assert (scene.tre_min.shape[0] >= packets._TWOLEVEL_MIN_K) == (instances >= 12)
+    g = torch.arange(0.25, 12.0, 0.5, device=cuda_device)
+    gx, gy = torch.meshgrid(g, g, indexing="ij")
+    m = gx.numel()
+    full = lambda v: torch.full((m,), v, device=cuda_device)
+    ro = Vec3(gx.reshape(-1), gy.reshape(-1), full(1.0))
+    rd = Vec3(full(0.0), full(0.0), full(-1.0))
+    sk, ek = _kernel_equals_twin(scene, ro, rd, full(1e-4), full(3.0e38),
+                                 torch.ones(m, dtype=torch.bool, device=cuda_device))
+    assert bool((sk >= 0).all()) and bool((ek["obj"] == instances - 1).all())
+
+
+@pytest.mark.cuda
+def test_kernel_equals_twin_on_super_plane_rays(big, cuda_device):
+    """The two-level cull's NaN caveat, beside ordinary rays in the same
+    packets."""
+    scene = big.to(cuda_device)
+    rays = torch.from_numpy(super_plane_rays(big.tre_min, big.tre_max)).to(cuda_device)
+    ro, rd, t_min, t_seed, active = _rays(16, cuda_device)
+    cat = lambda a, b: torch.cat([b, a])
+    ro = Vec3(*(cat(a, rays[:, i]) for i, a in enumerate(ro)))
+    rd = Vec3(*(cat(a, rays[:, 3 + i]) for i, a in enumerate(rd)))
+    k = rays.shape[0]
+    on = torch.ones(k, dtype=torch.bool, device=cuda_device)
+    sk, _ = _kernel_equals_twin(scene, ro, rd, cat(t_min, t_min[:k]), cat(t_seed, t_seed[:k]),
+                                cat(active, on))
+    assert int((sk[:k] >= 0).sum()) > 10
 
 
 @pytest.mark.cuda

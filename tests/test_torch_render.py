@@ -200,5 +200,5 @@ def test_unported_paths_raise(sphere_scene):
     d.add_material("lamp", "diffuse_light", emit=(4.0, 4.0, 4.0))
     d.add_sphere(0.3, np.eye(4), "lamp")
     with pytest.raises(NotImplementedError):
-        render_image(d.build(), cam, 8, 8)
+        render_image(d.build(device="cpu"), cam, 8, 8)
     assert dataclasses.is_dataclass(pscene)

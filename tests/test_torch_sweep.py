@@ -23,6 +23,8 @@ import torch
 import tpupt.core.math3d as jm3
 from tpupt.accel.packets import BIG as JBIG
 from tpupt.accel.packets import _comp, _dense_mt, _winner_reduce
+from tpupt.accel.packets import _cull_entries as jax_cull_entries
+from tpupt.accel.packets import _pack_rows as jax_pack_rows
 from tpupt.accel.packets import intersect_treelets as jax_intersect_treelets
 from tpupt.core.camera import generate_rays as jax_generate_rays
 from tpupt.core.camera import make_camera as jax_make_camera
@@ -30,10 +32,10 @@ from tpupt.core.vec import Vec3 as JVec3
 from tpupt.scene.description import SceneDescription as JaxDescription
 from tpupt.scene.procedural import icosphere
 
+from test_torch_kernels import super_plane_rays, tie_grid_scene
 from test_torch_scene import port_scene
 from tpupt_torch.accel import packets, step_kernel
 from tpupt_torch.core.vec import Vec3
-from tpupt_torch.scene.description import SceneDescription
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -132,29 +134,80 @@ def test_intersect_treelets_matches_jax_with_seeds_and_dead_lanes(ico):
     assert hit.sum() > 100 and not hit[~active].any()
 
 
-def _tie_grid_scene(pkg_desc, instances, n=12):
-    """test_tie_breaking.py's planar grid, as `instances` coplanar copies."""
-    xs, ys = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
-    pos = np.stack([xs.ravel(), ys.ravel(), np.zeros(xs.size)], axis=1).astype(np.float32)
-    vid = lambda i, j: i * (n + 1) + j
-    tris = []
-    for i in range(n):
-        for j in range(n):
-            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i, j + 1), vid(i + 1, j + 1)
-            tris += [[a, c, b], [b, c, d]]
-    d = pkg_desc()
+def _big_scene():
+    """Three icosphere(3) instances: K = 172 treelets, so both packages run
+    the two-level cull (K >= 96) over 11 super-boxes."""
+    v, f = icosphere(3)
+    d = JaxDescription()
     d.add_material("m", "lambertian", albedo=(1, 1, 1))
-    d.add_mesh("grid", pos, np.asarray(tris, np.int32))
-    for _ in range(instances):
-        d.add_mesh_object("grid", np.eye(4), "m")
+    d.add_mesh("mesh", v, f)
+    for off in ([0, 0, 0], [1.5, 0.3, -1], [-1.4, -0.2, -0.6]):
+        d.add_mesh_object("mesh", np.asarray(jm3.mat_translate(off)), "m")
     return d.build()
+
+
+@pytest.fixture(scope="module")
+def big():
+    jscene = _big_scene()
+    pscene = port_scene(jscene)
+    assert pscene.tre_min.shape[0] >= packets._TWOLEVEL_MIN_K
+    return jscene, pscene
+
+
+def _big_rays(pscene):
+    """2048 rays (8 packets): the pixel grid, random rays, and rays with a
+    zero direction component starting exactly on a super-box plane (the
+    two-level cull's NaN caveat), with seeds and dead lanes."""
+    rng = np.random.default_rng(11)
+    grid = np.stack(_grid_rays(), axis=1)
+    caveat = super_plane_rays(pscene.tre_min, pscene.tre_max)
+    centre = np.array([0.1, 0.05, -0.3])
+    m = 2048 - grid.shape[0] - len(caveat)
+    o = rng.uniform(-2.5, 2.5, (m, 3))
+    o[:, 2] += 3.0
+    d = rng.uniform(-1.0, 1.0, (m, 3)) + centre - o
+    rand = np.concatenate([o, d / np.linalg.norm(d, axis=1, keepdims=True)], axis=1)
+    rays = np.concatenate([grid, caveat, rand]).astype(np.float32)
+    n = rays.shape[0]
+    t_min = np.full(n, 1e-4, np.float32)
+    t_seed = np.where(rng.random(n) < 0.2, rng.uniform(1.0, 4.0, n), 3.0e38).astype(np.float32)
+    active = rng.random(n) < 0.9
+    active[grid.shape[0]:grid.shape[0] + len(caveat)] = True
+    return [rays[:, i] for i in range(6)], t_min, t_seed, active
+
+
+def test_cull_entries_match_jax_two_level(big):
+    """The port's masked two-level cull equals the JAX package's
+    expansion-ladder cull bit for bit, caveat rays included."""
+    jscene, pscene = big
+    comps, t_min, t_seed, active = _big_rays(pscene)
+    K = pscene.tre_min.shape[0]
+    rows, act = packets._pack_rows(Vec3(*map(_t, comps[:3])), Vec3(*map(_t, comps[3:])),
+                                   _t(t_min), _t(t_seed), _t(active))
+    got = packets._cull_entries(pscene.tre_min, pscene.tre_max, rows, act).numpy()
+    with jax.disable_jit():
+        jrows, jact, _, _ = jax_pack_rows(
+            JVec3(*map(jnp.asarray, comps[:3])), JVec3(*map(jnp.asarray, comps[3:])),
+            jnp.asarray(t_min), jnp.asarray(t_seed), jnp.asarray(active))
+        want = np.asarray(jax_cull_entries(jscene, jrows, jact))
+    np.testing.assert_array_equal(got, want[:, :K])
+    assert (want[:, K:] >= 3.0e38).all()
+    assert (got < 3.0e38).any() and (got >= 3.0e38).any()
+
+
+def test_intersect_treelets_matches_jax_two_level(big):
+    jscene, pscene = big
+    comps, t_min, t_seed, active = _big_rays(pscene)
+    jout = _jax_treelets(jscene, comps, t_min, t_seed, active)
+    hit = _check_against_jax(jout, _port_treelets(pscene, comps, t_min, t_seed, active))
+    assert hit.sum() > 300 and not hit[~active].any()
 
 
 def test_exact_t_ties_go_to_the_later_visit():
     """Two identical coplanar instances tie bit-exactly on every hit; the
     sequential later-visit-wins rule gives object 1 everywhere, which is
     what test_tie_breaking.py asserts of the JAX package."""
-    pscene = _tie_grid_scene(SceneDescription, 2)
+    pscene = tie_grid_scene(2)
     g = np.arange(0.25, 12.0, 0.5, dtype=np.float32)
     gx, gy = np.meshgrid(g, g, indexing="ij")
     n = gx.size

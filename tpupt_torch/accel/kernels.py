@@ -46,26 +46,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
+def library_path(extra_flags=()) -> str:
     """Where the library for the current sources and flags lives."""
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
     for s in srcs:
         with open(s, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"libtpupt_torch_kernels_{h.hexdigest()[:12]}.so")
 
 
-def build() -> str:
+def build(extra_flags=()) -> str:
     """Compile the kernels if their library is missing; returns its path.
-    nvcc's register and shared-memory report goes to ``<library>.log``."""
-    path = library_path()
+    nvcc's register and shared-memory report goes to ``<library>.log``.
+    ``extra_flags`` (e.g. ``-DTPUPT_SWEEP_PROFILE``) builds a variant."""
+    path = library_path(extra_flags)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *srcs, "-o", tmp],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, *srcs, "-o", tmp],
                           capture_output=True, text=True, timeout=900)
     with open(path + ".log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)
@@ -78,7 +79,12 @@ def build() -> str:
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
-    lib = ctypes.CDLL(build())
+    return bind(build())
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface."""
+    lib = ctypes.CDLL(path)
     lib.tpupt_treelet_smem_bytes.restype = ctypes.c_size_t
     lib.tpupt_treelet_smem_bytes.argtypes = [_I, _I]
     lib.tpupt_treelet_closest_hit.restype = _I

@@ -1,12 +1,11 @@
 """The native SAH BVH builder, compiled on first use.
 
-The JAX package builds its BVHs with ``tpupt/native/bvh_builder.cpp``, a
-framework-free C++ file with a plain C interface.  The port compiles that
-same source with g++ and the same flags into ``build/tpupt_torch_native/``
-and binds it with ctypes, so both packages produce equal trees (and so
-equal treelet tables).  The library file that the JAX package keeps next
-to its source is never loaded.  Without a source file or a compiler the
-port falls back to its numpy builder, as the JAX package does.
+``csrc/bvh_builder.cpp`` is the port's own copy of the JAX package's
+framework-free C++ builder (a plain C interface).  The port compiles it
+with g++ and the JAX package's flags into ``build/tpupt_torch_native/`` and
+binds it with ctypes, so both packages produce equal trees (and so equal
+treelet tables).  Without a compiler the port falls back to its numpy
+builder, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,17 +18,15 @@ import subprocess
 
 import numpy as np
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCE = os.path.join(_ROOT, "tpupt", "native", "bvh_builder.cpp")
-_BUILD_DIR = os.path.join(_ROOT, "build", "tpupt_torch_native")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SOURCE = os.path.join(_HERE, "csrc", "bvh_builder.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "tpupt_torch_native")
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     """The loaded library, or None when it cannot be built here."""
-    if not os.path.exists(_SOURCE):
-        return None
     with open(_SOURCE, "rb") as fh:
         tag = hashlib.sha256(fh.read() + " ".join(_FLAGS).encode()).hexdigest()[:12]
     path = os.path.join(_BUILD_DIR, f"libbvh_{tag}.so")

@@ -4,9 +4,12 @@
 Rays are folded into packets of 256 lanes.  Each packet walks the world
 treelet table front to back:
 
-  cull   every live lane slab-tests every treelet AABB; a treelet's packet
-         entry distance is the min over lanes of max(near, 0), or BIG when
-         no live lane can improve on its seed t (``_entry_dense``);
+  cull   a treelet's packet entry distance is the min over live lanes of
+         max(near, 0) of the lane's slab test, or BIG when no live lane can
+         improve on its seed t (``_entry_dense``).  Above
+         ``_TWOLEVEL_MIN_K`` treelets the packet first tests 16-treelet
+         super-boxes and keeps child entries only under a hit super
+         (``_cull_entries``, the JAX package's two-level cull);
   sweep  the packet takes its remaining treelets in strictly increasing
          (entry, index) order, one per step, runs Möller–Trumbore (MT) on
          all 256 x L pairs and keeps a running closest hit; it stops once
@@ -16,9 +19,9 @@ Within a treelet the earliest triangle wins an exact-t tie; across
 treelets a later visit replaces an equal t (``t <= best``).  That is the
 sequential visit order the JAX package's sweep reproduces with its
 reverse-fetch winner reduce, so slots agree with it exactly.  The JAX
-package's compaction ladder, fetch-R batching, lex/super selection and
-two-level cull are scheduling that leaves its results unchanged; the port
-keeps the flat semantics.
+package's compaction ladder, fetch-R batching and lex/super selection are
+scheduling that leaves its results unchanged; the port keeps the flat
+semantics.
 
 The work is done by ``sweep_kernel.treelet_closest_hit``: a hand-written
 CUDA kernel for CUDA tensors, and for CPU tensors its plain twin, a
@@ -34,6 +37,8 @@ from tpupt_torch.core.vec import Vec3
 PACKET = 256  # rays per packet = threads per CUDA block
 BIG = 3.0e38
 MOLLER_EPS = 1e-7  # reference EPSILON
+_SUPER = 16  # treelets per super-box of the two-level cull
+_TWOLEVEL_MIN_K = 96  # the two-level cull runs from this treelet count on
 # (packets x lanes x treelets) elements per chunk of the dense cull
 _CULL_ELEMS = 1 << 22
 # per-lane ray rows the kernels take, in their argument order
@@ -95,6 +100,49 @@ def _entry_dense(bmin, bmax, rows, act_p):
         )
         out.append(torch.where(hit, torch.clamp(near, min=0.0), BIG).amin(dim=1))
     return torch.cat(out)
+
+
+def _super_boxes(bmin, bmax):
+    """(ks, 3) min and max corners of the _SUPER-treelet super-boxes; the
+    table is padded to a _SUPER multiple with empty boxes (min BIG, max
+    -BIG) that never widen a super."""
+    pad = (-bmin.shape[0]) % _SUPER
+    bmin = torch.cat([bmin, bmin.new_full((pad, 3), BIG)])
+    bmax = torch.cat([bmax, bmax.new_full((pad, 3), -BIG)])
+    return bmin.view(-1, _SUPER, 3).amin(dim=1), bmax.view(-1, _SUPER, 3).amax(dim=1)
+
+
+def _cull_entries(bmin, bmax, rows, act_p, stats=None):
+    """(np, K) packet entry distances of the JAX package's cull
+    (``tpupt/accel/packets.py`` ``_cull_entries``): ``_entry_dense`` below
+    _TWOLEVEL_MIN_K treelets; from there on the two-level cull, whose
+    entries are ``_entry_dense``'s under a super-box the packet hits and BIG
+    elsewhere.  That masked form gives ``_entry_twolevel``'s values, also
+    where a ray with a zero direction component starts exactly on a
+    super-box plane (a NaN slab test, the caveat in its docstring).
+
+    ``stats``, when a dict, gains the work a two-level cull needs on these
+    inputs: ``live_lanes``, ``supers_hit`` (summed over packets) and
+    ``slab_tests`` (per live lane: every super, then every child of a hit
+    super; every box when dense)."""
+    K = bmin.shape[0]
+    entry = _entry_dense(bmin, bmax, rows, act_p)
+    live = act_p.sum(dim=1)
+    if K < _TWOLEVEL_MIN_K:
+        if stats is not None:
+            stats.update(live_lanes=int(live.sum()), supers_hit=0,
+                         slab_tests=int(live.sum()) * K)
+        return entry
+    hit = _entry_dense(*_super_boxes(bmin, bmax), rows, act_p) < BIG  # (np, ks)
+    if stats is not None:
+        children = torch.full((hit.shape[1],), _SUPER, device=hit.device)
+        children[-1] = K - _SUPER * (hit.shape[1] - 1)
+        stats.update(
+            live_lanes=int(live.sum()), supers_hit=int(hit.sum()),
+            slab_tests=int(live.sum()) * hit.shape[1]
+            + int((live * (hit.long() * children).sum(dim=1)).sum()),
+        )
+    return torch.where(hit.repeat_interleave(_SUPER, dim=1)[:, :K], entry, BIG)
 
 
 def _dense_mt(tri, ray, t_cap):

@@ -4,9 +4,10 @@ of ``tpupt/accel/pallas_sweep.py``).
 ``treelet_closest_hit`` launches the CUDA kernel
 ``treelet_closest_hit_kernel`` (``csrc/treelet_kernels.cu``), which
 replaces the Pallas ``_sweep_kernel`` together with the XLA cull that fed
-it: one 256-thread block per packet computes its treelet entry distances,
-then walks its treelets front to back, each thread folding its ray over
-the treelet's L triangles.  For CPU tensors it runs
+it: one 256-thread block per packet computes its treelet entry distances
+(the two-level cull above 96 treelets), sorts the hit treelets by (entry,
+index) and walks them front to back, each thread folding its ray over the
+treelet's L triangles while the next blocks load.  For CPU tensors it runs
 ``treelet_closest_hit_plain``, the lockstep loop described below.
 """
 
@@ -15,21 +16,30 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel import kernels
-from tpupt_torch.accel.packets import _ROW_KEYS, BIG, PACKET, _entry_dense
+from tpupt_torch.accel.packets import _ROW_KEYS, BIG, PACKET, _cull_entries
 from tpupt_torch.accel.step_kernel import winner_step_plain
 
 
-def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf):
-    """Torch twin of ``treelet_closest_hit``: a lockstep loop, vectorized
-    over packets, that advances every live packet by ONE treelet per step
+def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=None):
+    """Torch twin of ``treelet_closest_hit``: the cull
+    (``packets._cull_entries``), then a lockstep loop, vectorized over
+    packets, that advances every live packet by ONE treelet per step
     (argmin over the remaining entries, lowest index on exact ties), runs
     the dense step over its L pairs and keeps the closest hit.  A packet
     whose next entry lies beyond every live lane's best t is done; it stays
-    done because neither its entries nor its t change any more."""
+    done because neither its entries nor its t change any more.
+
+    ``stats``, when a dict, gains the cull's counts (``_cull_entries``) and
+    the walk's: ``visits`` (packet-treelet steps taken), ``visits_max``
+    (the most in one packet) and ``mt_pairs`` (live lanes times L, summed
+    over visits)."""
     np_, p = rows["rox"].shape
     K = tre_min.shape[0]
     dev = tre_tris.device
-    entry = _entry_dense(tre_min, tre_max, rows, act_p)
+    entry = _cull_entries(tre_min, tre_max, rows, act_p, stats)
+    live = act_p.sum(dim=1)
+    visits = torch.zeros(np_, dtype=torch.int64, device=dev)
+    pairs = 0
     t = rows["t"].clone()
     slot = torch.full((np_, p), -1, dtype=torch.int32, device=dev)
     nx, ny, nz = (torch.zeros((np_, p), device=dev) for _ in range(3))
@@ -42,6 +52,9 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf):
         valid = (ent < BIG) & (ent <= t.amax(dim=1))
         if not bool(valid.any()):
             break
+        if stats is not None:
+            visits += valid
+            pairs += int(live[valid].sum()) * leaf
         entry[ar, tid] = torch.where(valid, BIG, ent)
         safe = torch.where(valid, tid, 0)
         w = winner_step_plain(
@@ -55,6 +68,8 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf):
         ny = torch.where(got, w[3], ny)
         nz = torch.where(got, w[4], nz)
         obj = torch.where(got, w[5], obj)
+    if stats is not None:
+        stats.update(visits=int(visits.sum()), visits_max=int(visits.max()), mt_pairs=pairs)
     return t, slot, nx, ny, nz, obj
 
 
@@ -88,6 +103,9 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
             "treelet_closest_hit: every input must be contiguous on one device")
     req(all(a.dtype == torch.float32 for a in f32),
         "treelet_closest_hit: float32 inputs required")
+    # the kernel copies and reads treelet blocks in 16-byte pieces
+    req(leaf % 4 == 0, f"treelet_closest_hit: the leaf size {leaf} must be a multiple of 4")
+    req(tre_tris.data_ptr() % 16 == 0, "treelet_closest_hit: tre_tris must be 16-byte aligned")
 
     lib = kernels.load()
     smem = lib.tpupt_treelet_smem_bytes(K, leaf)

@@ -134,9 +134,9 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def scene_from_numpy(leaves: dict[str, Any], static: dict, device="cpu") -> SceneArrays:
-    """Build a ``SceneArrays`` on ``device`` from numpy leaves and static
-    fields.
+def scene_from_numpy(leaves: dict[str, Any], static: dict, device="cuda") -> SceneArrays:
+    """Build a ``SceneArrays`` on ``device`` (the card unless the caller
+    names another) from numpy leaves and static fields.
 
     ``leaves`` maps every non-static field name to a numpy array, except
     ``materials``, which maps to a dict of the ``Materials`` field names.

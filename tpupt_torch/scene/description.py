@@ -127,8 +127,9 @@ class SceneDescription:
         )
 
     # --- build ---------------------------------------------------------
-    def build(self, leaf_size: int = 32, device="cpu") -> SceneArrays:
-        """Bake to flat tensors on ``device`` (reference build_scene,
+    def build(self, leaf_size: int = 32, device="cuda") -> SceneArrays:
+        """Bake to flat tensors on ``device``, the card unless the caller
+        names another (reference build_scene,
         src/lib/scene_description.cpp:12-117) + the world-space treelet
         table for the packet intersector (accel/treelets.py)."""
         mat_index = {n: i for i, n in enumerate(self._material_order)}
