@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels from the sources in this checkout, holds each against its torch
 twin at the main path's shapes, renders the bunny scene at full size and
-checks the result.
+checks the result, then takes the gradient of a full-size differentiable
+render with respect to every scene parameter, holds it against the twin's
+at 256^2 and runs the denoiser's backward pass.
 
     python chip_smoke.py
 
@@ -9,12 +11,14 @@ Phases print as they go; any failure raises and the script exits non-zero.
 Without a CUDA device, or without the rest of the repository beside it,
 it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
-  * one JSON line {"kernels": [...], "off_path": [...]}: per kernel its
-    launches in the main-path render, its measured error and times, and
-    its bound (the work its inputs need at the card's published peaks),
+  * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
+    its launches on its main path (the forward render; the fwd+bwd step
+    for the payload form), its measured error and times, and its bound
+    (the work its inputs need at the card's published peaks),
   * {"ok": true, "device": {...}} as the last line.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -33,13 +37,18 @@ sys.path.insert(0, ROOT)
 import tpupt_torch  # noqa: E402  (needs the repository beside this script)
 from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noqa: E402
 from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
+from tpupt_torch.diff.params import MATERIAL_LEAVES, PARAM_LEAVES  # noqa: E402
 from tpupt_torch.render import integrator, intersect  # noqa: E402
 from tpupt_torch.render.materials import shade  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
+from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 
 DEV = torch.device("cuda")
 SIZE, SPP, MAX_BOUNCES, RR = 1024, 16, 50, 8  # the main path's render
+# the forward render's counts on bunny.json; the differentiable path must not move them
+FWD_LAUNCHES, FWD_SEGMENTS = 94, 25_417_152
+DIFF_SPP, DIFF_BOUNCES = 4, 8  # the fwd+bwd step (bench.py's _bench_fwd_bwd)
 OUT = os.path.join(ROOT, "chiprun_out")
 # published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
 # outside the tensor cores, HBM3 bandwidth
@@ -225,21 +234,92 @@ ro2, rd2, tmin2, *_ = shade(scene, hit0, st["ro"], st["rd"], st["t_min"], st["co
                             torch.zeros_like(pix))
 secondary = compare_sweep("secondaries after bounce 0", ro2, rd2, tmin2, hit0.mask)
 
+# --- 3a ------------------------------------------------------------------
+phase("3a treelet_closest_hit(payload=True) vs twin, same inputs, on the rebaked table")
+with torch.no_grad():
+    scene_r = rebake_treelets(scene)  # the table the differentiable render traces
+    table_r = intersect.slot_tri_table(scene_r)
+UNIT = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=DEV)
+
+
+def compare_payload(label, ro, rd, t_min, active):
+    """The payload form against its twin (all 15 outputs exact) and against
+    the 6-channel kernel (its 6 outputs exact); the payload against the
+    slot table's rows; both kernels' times in turns."""
+    t_seed = sphere_seed(ro, rd, t_min, active)
+    rows, act_p = packets._pack_rows(ro, rd, t_min, t_seed, active)
+    args = (rows, act_p, scene_r.tre_min, scene_r.tre_max, scene_r.tre_tris, L)
+    out_k = sweep_kernel.treelet_closest_hit(*args, payload=True)
+    work = {}
+    out_p = sweep_kernel.treelet_closest_hit_plain(*args, stats=work, payload=True)
+    six = sweep_kernel.treelet_closest_hit(*args)
+    torch.cuda.synchronize()
+    assert len(out_k) == len(out_p) == 15
+    require_equal(f"payload form {label}", out_k, out_p)
+    require_equal(f"payload form {label} vs the 6-channel kernel", out_k[:6], six)
+    slot = out_k[1].reshape(-1)
+    pay = torch.stack([o.reshape(-1) for o in out_k[6:]], dim=1)
+    hit = slot >= 0
+    assert torch.equal(pay[hit], table_r[slot[hit].long()]), f"{label}: payload != slot table rows"
+    assert torch.equal(pay[~hit], UNIT.expand(int((~hit).sum()), 9)), f"{label}: no-hit payload"
+    # in turns: 6-channel, payload, payload, 6-channel
+    six_ms, pay_ms = [], []
+    for which in (six_ms, pay_ms, pay_ms, six_ms):
+        kw = dict(payload=True) if which is pay_ms else {}
+        which.append(cuda_ms(lambda: sweep_kernel.treelet_closest_hit(*args, **kw), 20))
+    plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args, payload=True), 2)
+    lanes = act_p.numel()
+    flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
+    nbytes = lanes * (8 * 4 + 1 + 6 * 4 + 9 * 4) + K * (6 + 13 * L) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    ms = sum(pay_ms) / 2
+    print(f"{label}: {int(hit.sum())} mesh hits; all 15 outputs equal to the twin, the first 6 to "
+          f"the 6-channel kernel's, the payload to the slot table's rows")
+    print(f"  work: {work['slab_tests']} slab tests, {work['visits']} visits, {work['mt_pairs']} MT "
+          f"pairs = {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+    print(f"  payload kernel {pay_ms[0]:.4f}, {pay_ms[1]:.4f} ms; 6-channel kernel {six_ms[0]:.4f}, "
+          f"{six_ms[1]:.4f} ms (in turns): payload/6-channel {ms / (sum(six_ms) / 2):.3f}; "
+          f"twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+    return dict(ms=ms, ms_runs=pay_ms, six_ms_runs=six_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=0.0, hits=int(hit.sum()), work=work,
+                gflop=flops / 1e9)
+
+
+pay_primary = compare_payload("pixel-centre primaries", ro, rd, t_min,
+                              torch.ones(n, dtype=torch.bool, device=DEV))
+pay_secondary = compare_payload("secondaries after bounce 0", ro2, rd2, tmin2, hit0.mask)
+
 # --- 4 -------------------------------------------------------------------
 phase(f"4 main path: bunny.json render {SIZE}^2, {SPP} spp, {MAX_BOUNCES} bounces, rr {RR}")
 counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step)
-for w in counted:
-    w.launches = 0
+
+
+def reset_counts():
+    for w in counted:
+        w.launches = 0
+    sweep_kernel.treelet_closest_hit.payload_launches = 0
+
+
+def read_counts():
+    out = {w.__name__: w.launches for w in counted}
+    out["treelet_closest_hit(payload=True)"] = sweep_kernel.treelet_closest_hit.payload_launches
+    return out
+
+
+reset_counts()
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 buf, rays = tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=SPP,
                                      max_bounces=MAX_BOUNCES, rr_start=RR, device=DEV)
 torch.cuda.synchronize()
 first_s = time.perf_counter() - t0
-launches = {w.__name__: w.launches for w in counted}
+launches = read_counts()
 rays = int(rays)
 img = buf.color
 assert launches["treelet_closest_hit"] > 0, launches
+assert launches["treelet_closest_hit(payload=True)"] == 0, launches
+assert (launches["treelet_closest_hit"], rays) == (FWD_LAUNCHES, FWD_SEGMENTS), \
+    f"the forward render's counts moved: {launches}, {rays} segments"
 assert rays > n, rays
 assert tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all()), "non-finite image"
 assert bool(torch.isfinite(buf.normal).all() and torch.isfinite(buf.depth).all())
@@ -294,6 +374,149 @@ for key in ("color", "normal", "depth"):
     print(f"{key}: max |kernel - twin| = {float((a - b).abs().max()):.3g}")
 print(f"ray count equal: {int(rk)}")
 
+# --- 6 -------------------------------------------------------------------
+phase(f"6 main path, fwd+bwd: bunny.json {SIZE}^2, {DIFF_SPP} spp, {DIFF_BOUNCES} bounces, "
+      f"loss sum(color^2), backward to every extract_params leaf")
+LEAVES = PARAM_LEAVES + tuple(f"materials.{k}" for k in MATERIAL_LEAVES)
+
+
+def leaf(params, name):
+    return params["materials"][name[10:]] if name.startswith("materials.") else params[name]
+
+
+def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None, denoise=False):
+    """One step: a differentiable render from fresh params, the loss, its
+    backward.  Returns (loss, segments, {leaf: grad}, buffers, forward s,
+    backward s), the two times on the host clock between synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tpupt_torch.extract_params(scene)
+    buf, rays = tpupt_torch.render_image(
+        tpupt_torch.with_params(scene, params), desc.camera, size, size, spp=spp,
+        max_bounces=max_bounces, differentiable=True, intersect_fn=intersect_fn)
+    if denoise:
+        img = tpupt_torch.atrous_denoise(buf.color.reshape(size, size, 3),
+                                         buf.normal.reshape(size, size, 3),
+                                         buf.depth.reshape(size, size), desc.camera, filter_size=10)
+        loss = (img ** 2).sum()
+    else:
+        loss = (buf.color ** 2).sum()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    leaves = [leaf(params, k) for k in LEAVES]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return loss.detach(), int(rays), dict(zip(LEAVES, grads)), buf, t1 - t0, t2 - t1
+
+
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+mem0 = torch.cuda.memory_allocated()
+reset_counts()
+t0 = time.perf_counter()
+d_loss, d_rays, d_grads, _, _, _ = fwd_bwd()
+torch.cuda.synchronize()
+d_first_s = time.perf_counter() - t0
+d_launches = read_counts()
+d_peak = torch.cuda.max_memory_allocated() - mem0
+assert d_launches["treelet_closest_hit(payload=True)"] > 0, d_launches
+assert d_launches["treelet_closest_hit"] == 0 and d_launches["winner_step"] == 0, d_launches
+assert d_rays > n, d_rays
+assert bool(torch.isfinite(d_loss)), d_loss
+for k, g in d_grads.items():
+    assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k}"
+assert float(d_grads["positions"].abs().max()) > 0, "no gradient reached the vertex positions"
+print(f"first call {d_first_s:.3f} s; launches {d_launches}; {d_rays} primal segments; "
+      f"loss {float(d_loss):.6g}; peak memory {d_peak / 2**30:.2f} GiB above the "
+      f"{mem0 / 2**30:.2f} GiB resident before it")
+print("  max |grad|: " + ", ".join(f"{k} {float(g.abs().max()):.4g}" for k, g in d_grads.items()))
+d_walls, d_split = [], []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss2, rays2, grads2, _, f_s, b_s = fwd_bwd()
+    torch.cuda.synchronize()
+    d_walls.append(time.perf_counter() - t0)
+    d_split.append((f_s, b_s))
+    assert rays2 == d_rays, "the fwd+bwd step's segment count is not deterministic"
+d_wall = sorted(d_walls)[1]
+print(f"calls 2-4: {', '.join(f'{w:.3f}' for w in d_walls)} s wall; median {d_wall:.3f} s = "
+      f"{d_rays / d_wall / 1e6:.3f} fwd+bwd Mrays/s (primal segments)  [{smi}]")
+print("  forward + loss / backward: " + ", ".join(f"{f:.3f} / {b:.3f} s" for f, b in d_split))
+del loss2, grads2
+# device time of one more step, by kernel and by op
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    fwd_bwd()
+    torch.cuda.synchronize()
+kav = prof.key_averages()
+with open(os.path.join(OUT, "fwd_bwd_profile.txt"), "w") as fh:
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
+
+
+def dev_total(e):
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+on_card = [e for e in kav if e.device_type == torch.autograd.DeviceType.CUDA]
+d_busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+d_sweep = [e for e in kav if "treelet_closest_hit_kernel" in e.key]
+d_sweep_ms = sum(e.self_device_time_total for e in d_sweep) / 1e3
+d_index_add = [e for e in kav if e.key == "aten::index_add_"]
+d_index_add_ms = sum(dev_total(e) for e in d_index_add) / 1e3
+d_kernels = sum(e.count for e in on_card)
+if d_busy_ms > 0:
+    print(f"profiled step: device busy {d_busy_ms:.1f} ms = {d_busy_ms / 1e3 / d_wall:.1%} of the "
+          f"median wall; payload sweep {d_sweep_ms:.1f} ms in {sum(e.count for e in d_sweep)} launches; "
+          f"index_add_ {d_index_add_ms:.1f} ms in {sum(e.count for e in d_index_add)} calls; "
+          f"~{d_kernels} kernels")
+else:
+    print("profiled step: the profiler recorded no device time (not measured)")
+
+# --- 7 -------------------------------------------------------------------
+phase("7 gradient parity, kernel vs twin: 256^2, 1 spp, 4 bounces")
+twin_diff = functools.partial(intersect.intersect_scene_ids_diff,
+                              closest_hit=sweep_kernel.treelet_closest_hit_plain)
+lk, rk2, gk, *_ = fwd_bwd(256, 1, 4)
+lp, rp2, gp, *_ = fwd_bwd(256, 1, 4, intersect_fn=twin_diff)
+assert rk2 == rp2, (rk2, rp2)
+assert torch.allclose(lk, lp, rtol=1e-5), (float(lk), float(lp))
+grad_gap = {}
+for k in LEAVES:
+    a, b = gk[k], gp[k]
+    scale = float(b.abs().max())
+    assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale), k
+    grad_gap[k] = float((a - b).abs().max()) / scale if scale > 0 else 0.0
+print(f"ray count equal: {rk2}; loss {float(lk):.7g} vs {float(lp):.7g}; every gradient within rtol "
+      f"1e-5 (largest gap {max(grad_gap.values()):.3g} of its leaf's max |grad|)")
+
+# --- 8 -------------------------------------------------------------------
+phase(f"8 atrous_denoise (filter_size=10) on the fwd+bwd render's buffers, backward to the "
+      f"materials")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+_, _, dn_grads, dn_buf, _, _ = fwd_bwd(denoise=True)
+torch.cuda.synchronize()
+dn_wall = time.perf_counter() - t0
+for k, g in dn_grads.items():
+    assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k} through the denoiser"
+assert float(dn_grads["materials.albedo"].abs().max()) > 0
+# the filter alone, forward and backward, on the render's buffers as leaves
+dn_in = [t.detach().reshape(SIZE, SIZE, -1).squeeze(-1).requires_grad_(True)
+         for t in (dn_buf.color, dn_buf.normal, dn_buf.depth)]
+
+
+def denoise_step():
+    img = tpupt_torch.atrous_denoise(*dn_in, desc.camera, filter_size=10)
+    torch.autograd.grad((img ** 2).sum(), dn_in)
+
+
+dn_ms = cuda_ms(denoise_step, 3)
+print(f"render + denoise + backward {dn_wall:.3f} s wall (the step without the denoiser: "
+      f"{d_wall:.3f} s); the filter's forward and backward alone {dn_ms:.2f} ms; "
+      f"albedo grad max {float(dn_grads['materials.albedo'].abs().max()):.4g}")
+
 # --- report ----------------------------------------------------------------
 report = {
     "kernels": [dict(
@@ -306,6 +529,17 @@ report = {
         ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
         bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
         inputs={"primaries": primary, "secondaries": secondary},
+    ), dict(
+        # the same kernel's payload form (the JAX package's diff_payload
+        # sweep, tpupt/accel/packets.py:845), launched by the fwd+bwd step
+        name="treelet_closest_hit(payload=True)", route="cuda",
+        source="tpupt_torch/accel/csrc/treelet_kernels.cu",
+        replaces="tpupt/accel/pallas_sweep.py:54",
+        launches=d_launches["treelet_closest_hit(payload=True)"],
+        max_abs_err=max(pay_primary["max_abs_err"], pay_secondary["max_abs_err"]),
+        ms=pay_primary["ms"], plain_ms=pay_primary["plain_ms"], bound_ms=pay_primary["bound_ms"],
+        bound_by=pay_primary["bound_by"], library_ms=None,
+        inputs={"primaries": pay_primary, "secondaries": pay_secondary},
     )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
@@ -320,9 +554,16 @@ report = {
     "render": dict(rays=rays, wall_s=wall, walls_s=walls, mrays_per_s=rays / wall / 1e6,
                    first_call_s=first_s, profiled_device_busy_ms=busy_ms,
                    profiled_sweep_ms=sweep_ms),
+    "fwd_bwd": dict(rays=d_rays, wall_s=d_wall, walls_s=d_walls, mrays_per_s=d_rays / d_wall / 1e6,
+                    forward_backward_s=d_split,
+                    first_call_s=d_first_s, peak_bytes=d_peak, launches=d_launches,
+                    profiled_device_busy_ms=d_busy_ms, profiled_sweep_ms=d_sweep_ms,
+                    profiled_index_add_ms=d_index_add_ms, grad_parity_gap=grad_gap,
+                    denoise_step_wall_s=dn_wall, denoise_fwd_bwd_ms=dn_ms),
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
-    config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR)
+    config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR,
+                  fwd_bwd=dict(spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, loss="sum(color^2)"))
     json.dump(dict(report, card=smi, config=config), fh, indent=1)
 print()
 print(smi)

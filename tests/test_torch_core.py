@@ -50,6 +50,7 @@ def test_import_keeps_jax_out():
         "import sys, tpupt_torch\n"
         "import tpupt_torch.render.integrator, tpupt_torch.scene.json_parser\n"
         "import tpupt_torch.accel.sweep_kernel, tpupt_torch.accel.step_kernel\n"
+        "import tpupt_torch.diff.params, tpupt_torch.denoise.atrous, tpupt_torch.scene.bake\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpupt.'))]\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -101,12 +102,14 @@ def test_entry_points_default_to_the_card():
     no card the build raises instead of falling back to the CPU.  The
     render follows the scene's device."""
     from tpupt_torch.core.types import scene_from_numpy
+    from tpupt_torch.diff.params import params_from_numpy
     from tpupt_torch.render.integrator import render_image
     from tpupt_torch.scene.description import SceneDescription
 
     sig = inspect.signature
     assert sig(SceneDescription.build).parameters["device"].default == "cuda"
     assert sig(scene_from_numpy).parameters["device"].default == "cuda"
+    assert sig(params_from_numpy).parameters["device"].default == "cuda"
     assert sig(render_image).parameters["device"].default is None
     d = SceneDescription()
     d.add_material("m", "lambertian", albedo=(1, 1, 1))

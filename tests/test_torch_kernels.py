@@ -20,8 +20,9 @@ from tpupt_torch.accel import packets, step_kernel, sweep_kernel
 from tpupt_torch.core import math3d as m3
 from tpupt_torch.core.camera import generate_rays, make_camera, pixel_centers
 from tpupt_torch.core.vec import Vec3
+from tpupt_torch.diff.params import PARAM_LEAVES, extract_params, with_params
 from tpupt_torch.render.integrator import render_image
-from tpupt_torch.render.intersect import intersect_scene_ids
+from tpupt_torch.render.intersect import intersect_scene_ids, intersect_scene_ids_diff
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.procedural import icosphere
 
@@ -82,9 +83,10 @@ def super_plane_rays(tre_min, tre_max, centre=(0.1, 0.05, -0.3)):
     return np.asarray(rays, np.float32)
 
 
-def tie_grid_scene(instances, n=12, device="cpu"):
+def tie_grid_description(instances, n=12, desc_cls=SceneDescription):
     """test_tie_breaking.py's planar n x n grid of unit squares at z = 0, as
-    `instances` coplanar copies (16 treelets each at n = 12)."""
+    `instances` coplanar copies (16 treelets each at n = 12), for either
+    package's SceneDescription."""
     xs, ys = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
     pos = np.stack([xs.ravel(), ys.ravel(), np.zeros(xs.size)], axis=1).astype(np.float32)
     vid = lambda i, j: i * (n + 1) + j
@@ -93,12 +95,27 @@ def tie_grid_scene(instances, n=12, device="cpu"):
         for j in range(n):
             a, b, c, d = vid(i, j), vid(i + 1, j), vid(i, j + 1), vid(i + 1, j + 1)
             tris += [[a, c, b], [b, c, d]]
-    desc = SceneDescription()
+    desc = desc_cls()
     desc.add_material("m", "lambertian", albedo=(1, 1, 1))
     desc.add_mesh("grid", pos, np.asarray(tris, np.int32))
     for _ in range(instances):
         desc.add_mesh_object("grid", np.eye(4), "m")
-    return desc.build(device=device)
+    return desc
+
+
+def tie_grid_scene(instances, n=12, device="cpu"):
+    return tie_grid_description(instances, n).build(device=device)
+
+
+def tie_grid_rays(device="cpu"):
+    """Rays straight down onto the tie grid at the centres of a half-unit
+    lattice: (ro, rd, t_min, t_seed, active)."""
+    g = torch.arange(0.25, 12.0, 0.5, device=device)
+    gx, gy = torch.meshgrid(g, g, indexing="ij")
+    m = gx.numel()
+    full = lambda v: torch.full((m,), v, device=device)
+    return (Vec3(gx.reshape(-1), gy.reshape(-1), full(1.0)), Vec3(full(0.0), full(0.0), full(-1.0)),
+            full(1e-4), full(3.0e38), torch.ones(m, dtype=torch.bool, device=device))
 
 
 @pytest.fixture
@@ -161,19 +178,24 @@ def test_twin_agrees_across_packet_layouts(ico):
     assert int((slot >= 0).sum()) > 50
 
 
-def _kernel_equals_twin(scene, ro, rd, t_min, t_seed, active):
-    """One kernel launch against the twin on the same rays: all six
-    channels exactly equal.  Returns the kernel's slots and extras."""
-    before = sweep_kernel.treelet_closest_hit.launches
-    tk, sk, ek = packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active)
+def _kernel_equals_twin(scene, ro, rd, t_min, t_seed, active, diff_payload=False):
+    """One kernel launch against the twin on the same rays: every channel
+    (6, or 15 with the payload) exactly equal.  Returns the kernel's slots
+    and extras."""
+    fn = sweep_kernel.treelet_closest_hit
+    counter = "payload_launches" if diff_payload else "launches"
+    before = getattr(fn, counter)
+    tk, sk, ek = packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active,
+                                            diff_payload=diff_payload)
     tp, sp, ep = packets.intersect_treelets(
         scene, ro, rd, t_min, t_seed, active,
-        closest_hit=sweep_kernel.treelet_closest_hit_plain,
+        closest_hit=sweep_kernel.treelet_closest_hit_plain, diff_payload=diff_payload,
     )
     torch.cuda.synchronize()
-    assert sweep_kernel.treelet_closest_hit.launches == before + 1
+    assert getattr(fn, counter) == before + 1
     assert torch.equal(sk, sp) and torch.equal(tk, tp)
-    for key in ("nx", "ny", "nz", "obj"):
+    assert ek.keys() == ep.keys() and len(ek) == (13 if diff_payload else 4)
+    for key in ek:
         assert torch.equal(ek[key], ep[key]), key
     return sk, ek
 
@@ -203,23 +225,35 @@ def test_kernel_equals_twin_by_live_lanes(request, scene_name, n_live, cuda_devi
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("diff_payload", [False, True])
 @pytest.mark.parametrize("instances", [2, 12, 40])
-def test_kernel_equals_twin_on_tie_grid(instances, cuda_device):
+def test_kernel_equals_twin_on_tie_grid(instances, diff_payload, cuda_device):
     """Coplanar copies of a planar grid tie bit-exactly on every hit; the
     last instance is visited last and wins (K = 32 dense, K = 192 and 640
     two-level; at 640 a packet has more finite entries than the block has
     threads, so the kernel compacts and sorts them in several chunks)."""
     scene = tie_grid_scene(instances, device=cuda_device)
     assert (scene.tre_min.shape[0] >= packets._TWOLEVEL_MIN_K) == (instances >= 12)
-    g = torch.arange(0.25, 12.0, 0.5, device=cuda_device)
-    gx, gy = torch.meshgrid(g, g, indexing="ij")
-    m = gx.numel()
-    full = lambda v: torch.full((m,), v, device=cuda_device)
-    ro = Vec3(gx.reshape(-1), gy.reshape(-1), full(1.0))
-    rd = Vec3(full(0.0), full(0.0), full(-1.0))
-    sk, ek = _kernel_equals_twin(scene, ro, rd, full(1e-4), full(3.0e38),
-                                 torch.ones(m, dtype=torch.bool, device=cuda_device))
+    sk, ek = _kernel_equals_twin(scene, *tie_grid_rays(cuda_device), diff_payload=diff_payload)
     assert bool((sk >= 0).all()) and bool((ek["obj"] == instances - 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["ico", "big"])
+def test_payload_kernel_equals_twin(request, scene_name, cuda_device):
+    """The payload form: all 15 outputs equal to the twin's, the payload a
+    copy of the winner's block row, the unit triangle where no triangle
+    won."""
+    scene = request.getfixturevalue(scene_name).to(cuda_device)
+    sk, ek = _kernel_equals_twin(scene, *_rays(48, cuda_device), diff_payload=True)
+    hit = sk >= 0
+    assert int(hit.sum()) > 200 and not bool(hit.all())
+    K, L = scene.tre_tris.shape[0], scene.s_leaf_size
+    rows = scene.tre_tris.view(K, 13, L)[sk[hit] // L, :9, sk[hit] % L]
+    unit = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+    for c, key in enumerate(packets._DIFF_KEYS):
+        assert torch.equal(ek[key][hit], rows[:, c]), key
+        assert bool((ek[key][~hit] == unit[c]).all()), key
 
 
 @pytest.mark.cuda
@@ -276,6 +310,37 @@ def test_kernel_refuses_bad_layout(ico, cuda_device):
         sweep_kernel.treelet_closest_hit(
             rows, act, scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size
         )
+
+
+@pytest.mark.cuda
+def test_diff_render_kernel_equals_twin(ico, cuda_device):
+    """The differentiable render through the payload kernel against the
+    twin: equal ray counts, the loss and every gradient at rtol 1e-5
+    (index_add_ adds each slot's cotangents with atomics, in an order that
+    changes from run to run)."""
+    scene = ico.to(cuda_device)
+    cam = make_camera(position=(0, 0, 3), vfov=np.pi / 2)
+    twin = functools.partial(
+        intersect_scene_ids_diff, closest_hit=sweep_kernel.treelet_closest_hit_plain
+    )
+    out = []
+    for fn in (None, twin):
+        params = extract_params(scene)
+        before = sweep_kernel.treelet_closest_hit.payload_launches
+        buf, rays = render_image(with_params(scene, params), cam, 48, 40, spp=1, max_bounces=4,
+                                 differentiable=True, intersect_fn=fn)
+        launched = sweep_kernel.treelet_closest_hit.payload_launches - before
+        loss = (buf.color ** 2).sum()
+        leaves = [params[k] for k in PARAM_LEAVES] + list(params["materials"].values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        out.append((int(rays), loss.detach(), grads, launched))
+    (rk, lk, gk, nk), (rp, lp, gp, np_) = out
+    assert nk > 0 and np_ == 0
+    assert rk == rp > 48 * 40
+    assert torch.allclose(lk, lp, rtol=1e-5)
+    for a, b in zip(gk, gp):
+        assert bool(torch.isfinite(a).all())
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ On the CPU the port's wrappers run their torch twins; they are held to
 kernels are held to in test_pallas_sweep.py / test_pallas_step.py) on the
 same inputs.  Winner identity (slot, object, hit mask, the winner's
 normal) must be exact, t within rtol 1e-6 (test_pallas_sweep.py's
-tolerance).  The JAX reference runs under ``jax.disable_jit()``: compiled,
+tolerance); the differentiable renderer's payload (the winner's p0, e1,
+e2, copied out of its block row) must be EQUAL on every lane.  The JAX reference runs under ``jax.disable_jit()``: compiled,
 XLA's CPU backend contracts multiply-adds of the fused MT into FMAs, which
 moved one grazing t of the pixel grid by 1.5e-6 relative; op by op every
 operation rounds once, as in the port, and t comes out equal.
@@ -32,10 +33,12 @@ from tpupt.core.vec import Vec3 as JVec3
 from tpupt.scene.description import SceneDescription as JaxDescription
 from tpupt.scene.procedural import icosphere
 
-from test_torch_kernels import super_plane_rays, tie_grid_scene
+from test_torch_kernels import super_plane_rays, tie_grid_description, tie_grid_rays, tie_grid_scene
 from test_torch_scene import port_scene
 from tpupt_torch.accel import packets, step_kernel
 from tpupt_torch.core.vec import Vec3
+from tpupt_torch.render.intersect import slot_tri_table
+from tpupt_torch.scene.bake import rebake_treelets
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -73,11 +76,11 @@ def _port_treelets(pscene, comps, t_min, t_seed, active, device="cpu", **kw):
     )
 
 
-def _jax_treelets(jscene, comps, t_min, t_seed, active):
+def _jax_treelets(jscene, comps, t_min, t_seed, active, **kw):
     with jax.disable_jit():
         return jax_intersect_treelets(
             jscene, JVec3(*map(jnp.asarray, comps[:3])), JVec3(*map(jnp.asarray, comps[3:])),
-            jnp.asarray(t_min), jnp.asarray(t_seed), jnp.asarray(active),
+            jnp.asarray(t_min), jnp.asarray(t_seed), jnp.asarray(active), **kw
         )
 
 
@@ -132,6 +135,56 @@ def test_intersect_treelets_matches_jax_with_seeds_and_dead_lanes(ico):
     jout = _jax_treelets(jscene, comps, t_min, t_seed, active)
     hit = _check_against_jax(jout, _port_treelets(pscene, comps, t_min, t_seed, active))
     assert hit.sum() > 100 and not hit[~active].any()
+
+
+def _tie_rays():
+    return [np.asarray(c) for v in tie_grid_rays()[:2] for c in v]
+
+
+@pytest.mark.parametrize("case", ["pixel_grid", "tie_grid"])
+def test_intersect_treelets_payload_matches_jax(ico, case):
+    """diff_payload=True: the port's twin against the JAX package's sweep,
+    on test_pallas_sweep.py's scene and on two coplanar copies of the tie
+    grid (every hit an exact-t tie, won by the later visit)."""
+    if case == "pixel_grid":
+        jscene, pscene = ico
+        comps = _grid_rays()
+    else:
+        jscene = tie_grid_description(2, desc_cls=JaxDescription).build()
+        pscene = tie_grid_scene(2)
+        comps = _tie_rays()
+    n = comps[0].shape[0]
+    t_min = np.full(n, 1e-4, np.float32)
+    t_seed = np.full(n, 3.0e38, np.float32)
+    active = np.ones(n, bool)
+    active[::7] = False
+    jout = _jax_treelets(jscene, comps, t_min, t_seed, active, diff_payload=True)
+    pout = _port_treelets(pscene, comps, t_min, t_seed, active, diff_payload=True)
+    hit = _check_against_jax(jout, pout)
+    assert hit.sum() > 100 and not hit.all()
+    assert set(pout[2]) == set(jout[2])
+    for k in packets._DIFF_KEYS:
+        np.testing.assert_array_equal(pout[2][k].numpy(), np.asarray(jout[2][k]), err_msg=k)
+
+
+def test_payload_is_the_slot_table_row(ico):
+    """On a rebaked scene the payload of a hit lane is bit-equal to its
+    slot's row of slot_tri_table, the table the backward pass scatters
+    into; a lane that never hit carries the unit triangle."""
+    _, pscene = ico
+    scene = rebake_treelets(pscene)
+    comps = _grid_rays()
+    n = comps[0].shape[0]
+    active = np.ones(n, bool)
+    active[::5] = False
+    _t_out, slot, ex = _port_treelets(scene, comps, np.full(n, 1e-4, np.float32),
+                                      np.full(n, 3.0e38, np.float32), active, diff_payload=True)
+    pay = torch.stack([ex[k] for k in packets._DIFF_KEYS], dim=1)
+    hit = slot >= 0
+    assert int(hit.sum()) > 100 and not bool(hit.all())
+    assert torch.equal(pay[hit], slot_tri_table(scene)[slot[hit].long()])
+    unit = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    assert torch.equal(pay[~hit], unit.expand(int((~hit).sum()), 9))
 
 
 def _big_scene():
@@ -208,11 +261,8 @@ def test_exact_t_ties_go_to_the_later_visit():
     sequential later-visit-wins rule gives object 1 everywhere, which is
     what test_tie_breaking.py asserts of the JAX package."""
     pscene = tie_grid_scene(2)
-    g = np.arange(0.25, 12.0, 0.5, dtype=np.float32)
-    gx, gy = np.meshgrid(g, g, indexing="ij")
-    n = gx.size
-    comps = [gx.ravel(), gy.ravel(), np.full(n, 1.0, np.float32),
-             np.zeros(n, np.float32), np.zeros(n, np.float32), np.full(n, -1.0, np.float32)]
+    comps = _tie_rays()
+    n = comps[0].shape[0]
     t_min = np.full(n, 1e-4, np.float32)
     t_seed = np.full(n, 3.0e38, np.float32)
     active = np.ones(n, bool)

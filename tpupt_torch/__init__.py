@@ -1,10 +1,12 @@
 """tpupt_torch — the tpupt path tracer ported to PyTorch and CUDA.
 
 The JAX package ``tpupt`` is the reference; this package mirrors its
-layout (core/, sampling/, scene/, accel/, render/) and names, imports
-torch and numpy and never JAX.  The closest-hit treelet sweep runs as a
-hand-written CUDA kernel on the card (accel/csrc/), and as a plain torch
-twin on the CPU.
+layout (core/, sampling/, scene/, accel/, render/, diff/, denoise/) and
+names, imports torch and numpy and never JAX.  The closest-hit treelet
+sweep runs as a hand-written CUDA kernel on the card (accel/csrc/), and as
+a plain torch twin on the CPU.  ``render_image(differentiable=True)``
+renders under autograd; ``extract_params``/``with_params`` name what a
+gradient reaches.
 
 TF32 is switched off for matmuls and cuDNN: a reduced-precision fetch of
 triangle data flips hits (the JAX package needed full-precision one-hot
@@ -23,6 +25,8 @@ from tpupt_torch.core.types import (  # noqa: E402
     SceneArrays,
     scene_from_numpy,
 )
+from tpupt_torch.denoise.atrous import atrous_denoise  # noqa: E402
+from tpupt_torch.diff.params import extract_params, params_from_numpy, with_params  # noqa: E402
 from tpupt_torch.render.integrator import render_image  # noqa: E402
 from tpupt_torch.scene.description import SceneDescription  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
@@ -35,7 +39,11 @@ __all__ = [
     "RenderBuffers",
     "SceneArrays",
     "SceneDescription",
+    "atrous_denoise",
+    "extract_params",
+    "params_from_numpy",
     "render_image",
     "scene_from_json",
     "scene_from_numpy",
+    "with_params",
 ]

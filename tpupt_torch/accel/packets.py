@@ -43,6 +43,9 @@ _TWOLEVEL_MIN_K = 96  # the two-level cull runs from this treelet count on
 _CULL_ELEMS = 1 << 22
 # per-lane ray rows the kernels take, in their argument order
 _ROW_KEYS = ("rox", "roy", "roz", "rdx", "rdy", "rdz", "tmin", "t")
+# the winner's world triangle, block components 0-8: the differentiable
+# renderer's payload (extras keys of intersect_treelets(diff_payload=True))
+_DIFF_KEYS = ("p0x", "p0y", "p0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")
 
 
 def _pack_rows(ro: Vec3, rd: Vec3, t_min, t_cap, active):
@@ -193,23 +196,26 @@ def _winner_fold(t_masked, slots, cnx, cny, cnz, cobj):
 
 
 def intersect_treelets(scene, ro: Vec3, rd: Vec3, t_min, t_seed, active,
-                       closest_hit=None):
+                       closest_hit=None, diff_payload=False):
     """Closest mesh hit for every ray.
 
     Returns (t (N,), slot (N,) global treelet-slot id or -1, extras) with
     ``extras`` = {nx, ny, nz: the winner's unnormalized cross(e1, e2)
     normal, obj: its object id as float32, -1 for no hit}.  Lanes without a
-    hit keep their seed t (-BIG for inactive lanes).  ``closest_hit``
-    defaults to ``sweep_kernel.treelet_closest_hit``; pass
-    ``treelet_closest_hit_plain`` to run the twin on any device.
+    hit keep their seed t (-BIG for inactive lanes).  ``diff_payload`` adds
+    the winner's world triangle under ``_DIFF_KEYS`` (p0, e1, e2; the unit
+    triangle e1 = x, e2 = y where no triangle won, so the differentiable
+    refine stays NaN-free).  ``closest_hit`` defaults to
+    ``sweep_kernel.treelet_closest_hit``; pass ``treelet_closest_hit_plain``
+    to run the twin on any device.
     """
     if closest_hit is None:
         from tpupt_torch.accel.sweep_kernel import treelet_closest_hit as closest_hit
     n = ro.x.shape[0]
     rows, act_p = _pack_rows(ro, rd, t_min, t_seed, active)
-    t, slot, nx, ny, nz, obj = closest_hit(
-        rows, act_p, scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size
-    )
-    extras = {k: v.reshape(-1)[:n] for k, v in
-              (("nx", nx), ("ny", ny), ("nz", nz), ("obj", obj))}
+    args = (rows, act_p, scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
+    out = closest_hit(*args, payload=True) if diff_payload else closest_hit(*args)
+    t, slot = out[:2]
+    keys = ("nx", "ny", "nz", "obj") + (_DIFF_KEYS if diff_payload else ())
+    extras = {k: v.reshape(-1)[:n] for k, v in zip(keys, out[2:])}
     return t.reshape(-1)[:n], slot.reshape(-1)[:n], extras

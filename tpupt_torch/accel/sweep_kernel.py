@@ -7,8 +7,11 @@ replaces the Pallas ``_sweep_kernel`` together with the XLA cull that fed
 it: one 256-thread block per packet computes its treelet entry distances
 (the two-level cull above 96 treelets), sorts the hit treelets by (entry,
 index) and walks them front to back, each thread folding its ray over the
-treelet's L triangles while the next blocks load.  For CPU tensors it runs
-``treelet_closest_hit_plain``, the lockstep loop described below.
+treelet's L triangles while the next blocks load.  With ``payload=True``
+(the differentiable renderer's form) it also returns the winner's world
+triangle p0, e1, e2, read from its block row by slot after the walk.  For
+CPU tensors it runs ``treelet_closest_hit_plain``, the lockstep loop
+described below.
 """
 
 from __future__ import annotations
@@ -16,11 +19,25 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel import kernels
-from tpupt_torch.accel.packets import _ROW_KEYS, BIG, PACKET, _cull_entries
+from tpupt_torch.accel.packets import _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries
 from tpupt_torch.accel.step_kernel import winner_step_plain
 
 
-def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=None):
+def _payload_rows(tre_tris, leaf, slot):
+    """The winner's p0x..e2z, components 0-8 of its block row, gathered by
+    slot: 9 tensors shaped like ``slot``, the unit triangle (p0 = 0,
+    e1 = x, e2 = y) where ``slot`` is -1, as the JAX package's sweep
+    leaves lanes it never updates."""
+    K = tre_tris.shape[0]
+    safe = slot.clamp(min=0).long()
+    rows = tre_tris.view(K, 13, leaf)[safe // leaf, :9, safe % leaf]  # (..., 9)
+    got = slot >= 0
+    return tuple(torch.where(got, rows[..., k], 1.0 if key in ("e1x", "e2y") else 0.0)
+                 for k, key in enumerate(_DIFF_KEYS))
+
+
+def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=None,
+                              payload=False):
     """Torch twin of ``treelet_closest_hit``: the cull
     (``packets._cull_entries``), then a lockstep loop, vectorized over
     packets, that advances every live packet by ONE treelet per step
@@ -32,7 +49,8 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
     ``stats``, when a dict, gains the cull's counts (``_cull_entries``) and
     the walk's: ``visits`` (packet-treelet steps taken), ``visits_max``
     (the most in one packet) and ``mt_pairs`` (live lanes times L, summed
-    over visits)."""
+    over visits).  ``payload`` appends the winner's p0x..e2z
+    (``_payload_rows``)."""
     np_, p = rows["rox"].shape
     K = tre_min.shape[0]
     dev = tre_tris.device
@@ -70,20 +88,26 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
         obj = torch.where(got, w[5], obj)
     if stats is not None:
         stats.update(visits=int(visits.sum()), visits_max=int(visits.max()), mt_pairs=pairs)
-    return t, slot, nx, ny, nz, obj
+    out = (t, slot, nx, ny, nz, obj)
+    return out + _payload_rows(tre_tris, leaf, slot) if payload else out
 
 
-def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
+def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=False):
     """Closest hit per lane for packed rays (``packets._pack_rows``).
 
     rows: dict of rox..rdz, tmin, t (seed best t, -BIG on dead lanes), each
     (np, 256) f32.  act_p: (np, 256) bool.  tre_min/tre_max: (K, 3) f32.
     tre_tris: (K, 13 * leaf) f32.  Returns (t, slot, nx, ny, nz, obj), each
     (np, 256): lanes without a mesh hit keep their seed t, slot -1, normal
-    0 and obj -1.
+    0 and obj -1.  ``payload=True`` appends the winner's p0x, p0y, p0z, e1x,
+    ..., e2z (9 more (np, 256) f32; the unit triangle where slot is -1).
+
+    Launches are counted in ``treelet_closest_hit.launches`` (6 channels)
+    and ``treelet_closest_hit.payload_launches`` (the payload form).
     """
     if tre_tris.device.type == "cpu":
-        return treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf)
+        return treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf,
+                                         payload=payload)
     req = kernels.require
     req(tre_tris.is_cuda, f"treelet_closest_hit: unsupported device {tre_tris.device}")
     np_, p = rows["rox"].shape
@@ -115,15 +139,21 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
     dev = tre_tris.device
     out = [torch.empty((np_, p), dtype=dt, device=dev)
            for dt in (torch.float32, torch.int32) + (torch.float32,) * 4]
+    pay = torch.empty((9, np_, p), dtype=torch.float32, device=dev) if payload else None
     if np_:
         err = lib.tpupt_treelet_closest_hit(
             *[rows[k].data_ptr() for k in _ROW_KEYS], act_p.data_ptr(),
             tre_min.data_ptr(), tre_max.data_ptr(), tre_tris.data_ptr(),
-            np_, K, leaf, *[o.data_ptr() for o in out], kernels.stream_of(tre_tris),
+            np_, K, leaf, *[o.data_ptr() for o in out],
+            pay.data_ptr() if payload else None, kernels.stream_of(tre_tris),
         )
         kernels.check(lib, err, "treelet_closest_hit")
-        treelet_closest_hit.launches += 1
-    return tuple(out)
+        if payload:
+            treelet_closest_hit.payload_launches += 1
+        else:
+            treelet_closest_hit.launches += 1
+    return tuple(out) + tuple(pay.unbind(0)) if payload else tuple(out)
 
 
 treelet_closest_hit.launches = 0
+treelet_closest_hit.payload_launches = 0

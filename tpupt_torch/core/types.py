@@ -126,6 +126,28 @@ STATIC_FIELDS = tuple(
     f.name for f in dataclasses.fields(SceneArrays) if f.name.startswith("s_")
 )
 
+# per-object, per-material and per-sphere tables up to this many rows are
+# read per lane through a one-hot product while autograd records
+_ONEHOT_MAX_ROWS = 512
+
+
+def table_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a small per-object, per-material or per-sphere
+    table and an (N,) index.
+
+    While autograd records and the table needs a gradient, the rows come
+    from onehot(idx) @ table: the same values (one product by 1.0 plus
+    zeros; TF32 is off), and the backward pass is the product's transpose,
+    a dense reduction over the lanes.  The VJP of plain indexing scatters
+    with a sort and sums each index's run of duplicates serially; with a
+    million lanes reading a handful of rows that took ~200 ms per gather on
+    an H100.  Otherwise it indexes."""
+    n_rows = table.shape[0]
+    if not (torch.is_grad_enabled() and table.requires_grad) or n_rows > _ONEHOT_MAX_ROWS:
+        return table[idx]
+    onehot = (idx[:, None] == torch.arange(n_rows, device=idx.device)).to(table.dtype)
+    return (onehot @ table.reshape(n_rows, -1)).reshape(idx.shape + table.shape[1:])
+
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.array(a)  # a contiguous copy; keeps 0-dim arrays 0-dim

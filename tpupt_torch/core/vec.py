@@ -61,6 +61,13 @@ class Vec3(NamedTuple):
     def dot(self, o: "Vec3") -> torch.Tensor:
         return self.x * o.x + self.y * o.y + self.z * o.z
 
+    def cross(self, o: "Vec3") -> "Vec3":
+        return Vec3(
+            self.y * o.z - self.z * o.y,
+            self.z * o.x - self.x * o.z,
+            self.x * o.y - self.y * o.x,
+        )
+
     def length2(self) -> torch.Tensor:
         return self.dot(self)
 

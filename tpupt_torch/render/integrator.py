@@ -1,18 +1,26 @@
-"""The forward path-tracing integrator (counterpart of
-``tpupt/render/integrator.py``, forward rendering only).
+"""The path-tracing integrator (counterpart of
+``tpupt/render/integrator.py``).
 
 The whole flat ray batch goes through a bounce loop with masked lanes.
-Samples are chained per lane: the moment a lane's path dies it folds the
-sample into its own (n-1)/n running average and starts its next sample,
-so the loop runs for the maximum over lanes of the summed path lengths
-(at most spp * max_bounces trips) instead of spp times the deepest path.
-RNG is counter-based on (pixel, sample, bounce, lane), so the result is
-that of the per-sample loop, with the same ray count.
 
-The port runs this as one flat loop with a host check for live lanes on
-every trip.  The JAX package's packet-row compaction ladder is scheduling
-only and is left out.  Emitters (next-event estimation) and the
-differentiable path are not ported yet and raise ``NotImplementedError``.
+Forward: samples are chained per lane.  The moment a lane's path dies it
+folds the sample into its own (n-1)/n running average and starts its next
+sample, so the loop runs for the maximum over lanes of the summed path
+lengths (at most spp * max_bounces trips) instead of spp times the deepest
+path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
+is that of the per-sample loop, with the same ray count.  The port runs
+this as one flat loop with a host check for live lanes on every trip.
+
+Differentiable (``differentiable=True``): a loop over samples, each
+``trace_sample``: the treelet table is rebaked from the scene's positions,
+the slot table is built once, and each bounce finds its hit ids with the
+sweep's payload form outside autograd and recomputes the hit in closed
+form (``intersect.refine_hit``) under it.  The whole graph is kept for the
+backward pass; the sweep never runs in it.
+
+The JAX package's compaction ladders (forward and differentiable) are
+scheduling only and are left out.  Emitters (next-event estimation) are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,11 +29,18 @@ import torch
 
 from tpupt_torch.core import camera as cam
 from tpupt_torch.core import vec
-from tpupt_torch.core.types import Camera, RenderBuffers, SceneArrays
+from tpupt_torch.core.types import OBJ_MESH, Camera, RenderBuffers, SceneArrays
 from tpupt_torch.core.vec import Vec3
-from tpupt_torch.render.intersect import background_color, intersect_scene_ids
+from tpupt_torch.render.intersect import (
+    background_color,
+    intersect_scene_ids,
+    intersect_scene_ids_diff,
+    refine_hit,
+    slot_tri_table,
+)
 from tpupt_torch.render.materials import russian_roulette, shade
 from tpupt_torch.sampling.rng import jitter_counters, pixel_seed, uniform
+from tpupt_torch.scene.bake import rebake_treelets
 
 MAX_BOUNCES_DEFAULT = 50  # reference max_bounces
 
@@ -60,10 +75,22 @@ def _weighted_emission(radiance, state, emitted, hit_alive):
     return vec.where(hit_alive, radiance + state["color"] * emitted, radiance)
 
 
-def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn):
-    """One bounce over all lanes; ``bounce`` is per lane."""
+def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=False,
+                 tri_table=None):
+    """One bounce over all lanes; ``bounce`` is per lane or one int.
+
+    ``use_refine``: ``intersect_fn`` is an ids pass that returns (ids,
+    tri_vals) (``intersect_scene_ids_diff``), and the hit is recomputed
+    differentiably by ``refine_hit``, with ``tri_table`` as the slot table
+    of the triangle rows."""
     alive = state["alive"]
-    _ids, hit = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+    if use_refine:
+        ids, tri_vals = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+        if tri_vals is not None and tri_table is not None:
+            tri_vals = dict(tri_vals, table=tri_table)
+        hit = refine_hit(scene, state["ro"], state["rd"], state["t_min"], ids, tri_vals)
+    else:
+        _ids, hit = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
     hit_alive = alive & hit.mask
     miss = alive & ~hit.mask
 
@@ -97,6 +124,8 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn):
         # lanes keep the radiance collected so far
         tp, al = russian_roulette(out["color"], out["alive"], seed, bounce)
         apply = bounce >= rr_start
+        if not isinstance(apply, torch.Tensor):  # one bounce for every lane
+            apply = torch.full_like(al, apply)
         out["color"] = vec.where(apply & al, tp, out["color"])
         out["alive"] = torch.where(apply, al, out["alive"])
     return out
@@ -186,7 +215,51 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
     return buffers, segs.sum()
 
 
-@torch.no_grad()
+def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=None,
+                 intersect_fn=intersect_scene_ids_diff):
+    """One differentiable sample per pixel.  Returns (color (N, 3), normal
+    (N, 3), depth (N,), traced segments as a 0-dim int64 tensor), all but
+    the count differentiable in the scene's float leaves.
+
+    The treelet table is rebaked from ``scene.positions`` first, so the
+    traced geometry is that of the parameters and the sweep's payload
+    copies the rows of the slot table built here once.  The bounce loop
+    stops early once no lane is alive: a dead lane changes nothing."""
+    tri_table = None
+    if any(k == OBJ_MESH for k in scene.s_obj_kind):
+        scene = rebake_treelets(scene)
+        tri_table = slot_tri_table(scene)
+    pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
+    state, seed = _fresh_state(scene, camera, width, height, pix, iteration)
+    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for b in range(max_bounces):
+        if not bool(state["alive"].any()):
+            break
+        rays = rays + state["alive"].sum()
+        state = _bounce_body(scene, seed, state, b, rr_start, intersect_fn, use_refine=True,
+                             tri_table=tri_table)
+    # paths alive at the bounce cap add their raw throughput
+    final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
+    return final.to_array(), state["normal"].to_array(), state["depth"], rays
+
+
+def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
+                    start_iteration, intersect_fn):
+    """The differentiable render: ``spp`` samples, each a ``trace_sample``,
+    folded by ``accumulate``."""
+    n = width * height
+    zero = torch.zeros((n, 3), device=scene.device)
+    buffers = RenderBuffers(color=zero, normal=zero, depth=zero[:, 0],
+                            iteration=int(start_iteration))
+    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for it in range(start_iteration, start_iteration + spp):
+        color, normal, depth, r = trace_sample(scene, camera, width, height, it, max_bounces,
+                                               rr_start, intersect_fn)
+        buffers = accumulate(buffers, color, normal, depth)
+        rays = rays + r
+    return buffers, rays
+
+
 def render_image(
     scene: SceneArrays,
     camera: Camera,
@@ -197,16 +270,22 @@ def render_image(
     differentiable: bool = False,
     rr_start: int | None = None,
     start_iteration: int = 0,
-    intersect_fn=intersect_scene_ids,
+    intersect_fn=None,
     chain_samples: bool = True,
     device=None,
 ):
     """Render ``spp`` progressive samples on ``device`` (default: the
     scene's).  Returns (RenderBuffers, total traced segments as a 0-dim
-    int64 tensor)."""
-    if differentiable:
-        raise NotImplementedError("the differentiable renderer is not ported yet")
-    if not chain_samples:
+    int64 tensor).
+
+    ``differentiable=True`` records the render for autograd: its buffers
+    are differentiable in the scene's float leaves (``diff.extract_params``
+    / ``with_params``).  Otherwise it runs the chained forward loop under
+    ``torch.no_grad()``.  ``intersect_fn`` is the hit pass: by default
+    ``intersect_scene_ids`` forward and ``intersect_scene_ids_diff`` when
+    differentiable (the twin: either with ``closest_hit=
+    sweep_kernel.treelet_closest_hit_plain`` bound)."""
+    if not chain_samples and not differentiable:
         raise NotImplementedError("only the sample-chained forward loop is ported")
     if scene.has_nee:
         raise NotImplementedError(
@@ -215,5 +294,9 @@ def render_image(
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
-    return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                           start_iteration, intersect_fn)
+    if differentiable:
+        return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
+                               start_iteration, intersect_fn or intersect_scene_ids_diff)
+    with torch.no_grad():
+        return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
+                               start_iteration, intersect_fn or intersect_scene_ids)

@@ -1,4 +1,4 @@
-"""Scene-level closest-hit intersection, forward only (counterpart of
+"""Scene-level closest-hit intersection (counterpart of
 ``tpupt/render/intersect.py``).
 
 Spheres: an unrolled scan over the sphere objects (the reference's object
@@ -6,13 +6,29 @@ loop; a later equal-t hit overwrites an earlier one).  Meshes: the packet
 treelet sweep (``accel/packets.py``) over the world-baked treelet table,
 seeded with the sphere pass's t so treelets behind a sphere hit are
 skipped.  The winner's normal and object id come out of the sweep with it.
+
+The differentiable renderer splits a hit in two:
+
+  1. ``intersect_scene_ids_diff`` finds WHICH primitive each ray hits, under
+     ``torch.no_grad()``: discrete ids, and the winning triangle's world
+     p0, e1, e2 carried out of the sweep (its payload form);
+  2. ``refine_hit`` recomputes t, point and normal in closed form from the
+     scene parameters and the ray, so gradients reach vertex positions,
+     sphere centres and radii.  The triangle's rows enter through
+     ``_FetchTriRows``, whose backward scatters their cotangent into the
+     slot-ordered table ``slot_tri_table`` (one ``index_add_``).
+
+Visibility is treated as locally constant, as in the JAX package.  Rows
+of the small per-sphere and per-material tables are read through
+``types.table_rows``, whose backward pass is a dense reduction over the
+lanes rather than a scatter into a few rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpupt_torch.accel.packets import intersect_treelets
+from tpupt_torch.accel.packets import _DIFF_KEYS, intersect_treelets
 from tpupt_torch.core import vec
 from tpupt_torch.core.types import (
     Hit,
@@ -23,8 +39,10 @@ from tpupt_torch.core.types import (
     PRIM_SPHERE,
     PRIM_TRIANGLE,
     SceneArrays,
+    table_rows,
 )
 from tpupt_torch.core.vec import Vec3
+from tpupt_torch.scene.bake import world_slot_tris
 
 BIG_T = 3.0e38
 
@@ -91,6 +109,19 @@ def _sphere_pass(scene, ro: Vec3, rd: Vec3, t_min, active, t_best, kind, obj_id,
     return t_best, kind, obj_id, prim_id, point, normal, front, mat
 
 
+def _has_mesh(scene) -> bool:
+    return any(k == OBJ_MESH for k in scene.s_obj_kind)
+
+
+def _blank_ids(n, dev):
+    return (
+        torch.full((n,), BIG_T, device=dev),
+        torch.full((n,), PRIM_NONE, dtype=torch.int32, device=dev),
+        torch.full((n,), -1, dtype=torch.int64, device=dev),
+        torch.full((n,), -1, dtype=torch.int64, device=dev),
+    )
+
+
 @torch.no_grad()
 def intersect_scene_ids(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active,
                         closest_hit=None):
@@ -100,17 +131,12 @@ def intersect_scene_ids(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active,
     ``packets.intersect_treelets``); the default is the CUDA kernel on the
     card and its twin on the CPU."""
     n = ro.x.shape[0]
-    dev = ro.x.device
-    t_best = torch.full((n,), BIG_T, device=dev)
-    kind = torch.full((n,), PRIM_NONE, dtype=torch.int32, device=dev)
-    obj_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    prim_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
-
+    t_best, kind, obj_id, prim_id = _blank_ids(n, ro.x.device)
     t_best, kind, obj_id, prim_id, point, normal, front, mat = _sphere_pass(
         scene, ro, rd, t_min, active, t_best, kind, obj_id, prim_id
     )
 
-    if any(k == OBJ_MESH for k in scene.s_obj_kind):
+    if _has_mesh(scene):
         t_mesh, slot, ex = intersect_treelets(
             scene, ro, rd, t_min, t_best, active, closest_hit=closest_hit
         )
@@ -143,6 +169,149 @@ def intersect_scene_ids(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active,
     )
     ids = HitIds(kind=kind, obj_id=obj_id, prim_id=prim_id, t=t_best)
     return ids, fwd
+
+
+@torch.no_grad()
+def intersect_scene_ids_diff(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active,
+                             closest_hit=None):
+    """The differentiable renderer's ids pass.  Returns (ids, tri_vals).
+
+    Like ``intersect_scene_ids`` without the forward hit record, and the
+    sweep runs in its payload form: ``tri_vals`` = {slot, p0x..e2z} holds
+    the winning triangle's world rows (the unit triangle where no triangle
+    won), or is None for a scene without meshes.  ``ids.prim_id`` keeps its
+    sphere-pass value on triangle lanes.  Nothing here is seen by autograd.
+
+    The caller traces a scene rebaked from its positions
+    (``scene.bake.rebake_treelets``), so the payload is a copy of the rows
+    of ``slot_tri_table(scene)``."""
+    n = ro.x.shape[0]
+    t_best, kind, obj_id, prim_id = _blank_ids(n, ro.x.device)
+    t_best, kind, obj_id, prim_id, *_ = _sphere_pass(
+        scene, ro, rd, t_min, active, t_best, kind, obj_id, prim_id
+    )
+    tri_vals = None
+    if _has_mesh(scene):
+        t_mesh, slot, ex = intersect_treelets(
+            scene, ro, rd, t_min, t_best, active, closest_hit=closest_hit, diff_payload=True
+        )
+        take = slot >= 0
+        t_best = torch.where(take, t_mesh, t_best)
+        kind = torch.where(take, PRIM_TRIANGLE, kind)
+        obj_id = torch.where(take, torch.clamp(ex["obj"].long(), min=0), obj_id)
+        tri_vals = {"slot": slot, **{k: ex[k] for k in _DIFF_KEYS}}
+    return HitIds(kind=kind, obj_id=obj_id, prim_id=prim_id, t=t_best), tri_vals
+
+
+def slot_tri_table(scene: SceneArrays) -> torch.Tensor:
+    """The (K*L, 9) slot-ordered [p0, e1, e2] world triangle table,
+    differentiable in ``scene.positions``: the rows the sweep's payload
+    copies and the target ``_FetchTriRows`` scatters cotangents into.
+    Built once per sample."""
+    w0, w1, w2, _pad = world_slot_tris(scene)
+    we1, we2 = w1 - w0, w2 - w0
+    return torch.stack([*w0, *we1, *we2], dim=1)
+
+
+class _FetchTriRows(torch.autograd.Function):
+    """The winner rows "fetched" from the slot table.
+
+    Forward: (wtable (K*L, 9), slot (N,), *vals) -> vals, the 9 (N,)
+    components the sweep already copied out of the rebaked table, so there
+    is no forward gather.  Backward: the VJP of the row gather
+    ``wtable[clamp(slot, 0)]``, one ``index_add_`` of the stacked (N, 9)
+    cotangent; ``slot`` and ``vals`` get none."""
+
+    @staticmethod
+    def forward(ctx, wtable, slot, *vals):
+        ctx.save_for_backward(slot)
+        ctx.rows = wtable.shape[0]
+        return vals
+
+    @staticmethod
+    def backward(ctx, *cots):
+        (slot,) = ctx.saved_tensors
+        cot = torch.stack(cots, dim=1)
+        g = cot.new_zeros((ctx.rows, cot.shape[1]))
+        g.index_add_(0, slot.clamp(min=0).long(), cot)
+        return (g, None) + (None,) * len(cots)
+
+
+def refine_hit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, ids: HitIds,
+               tri_vals=None) -> Hit:
+    """Differentiable closed-form recomputation of the winning hit, as the
+    JAX package's ``refine_hit``.  ``tri_vals`` is the ids pass's payload,
+    optionally with "table" = ``slot_tri_table(scene)`` built once by the
+    caller; a scene with meshes needs it.
+
+    Both branches run on every lane and ``ids.kind`` selects, so the
+    unselected one must stay finite: the sphere root takes
+    sqrt(max(disc, 1e-12)) and the triangle's determinant is floored at
+    1e-12 in magnitude."""
+    n = ro.x.shape[0]
+    dev = ro.x.device
+    mask = ids.kind != PRIM_NONE
+    safe_obj = torch.clamp(ids.obj_id, min=0).long()
+    safe_prim = torch.clamp(ids.prim_id, min=0).long()
+    m = scene.obj_m[safe_obj]
+    inv_m = scene.obj_inv_m[safe_obj]
+
+    # --- sphere branch -------------------------------------------------
+    s_prim = torch.where(ids.kind == PRIM_SPHERE, safe_prim, 0)
+    center = Vec3(*table_rows(scene.sphere_center, s_prim).unbind(1))
+    radius = table_rows(scene.sphere_radius, s_prim)
+    oo = vec.transform_point(inv_m, ro)
+    od = vec.transform_vector(inv_m, rd).normalize()
+    oc = oo - center
+    a = od.dot(od)
+    b = 2.0 * od.dot(oc)
+    c = oc.dot(oc) - radius * radius
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=1e-12))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    # the ids pass took t1 when it was in the window; t1 <= t2
+    t_obj = torch.where(t1 >= t_min, t1, t2)
+    sp_point_obj = oo + od * t_obj
+    sp_point = vec.transform_point(m, sp_point_obj)
+    sp_t = (sp_point - ro).length()
+    sp_outward = (sp_point_obj - center) * (1.0 / radius)
+    sp_front = od.dot(sp_outward) < 0.0
+    sp_normal = vec.transform_normal(inv_m, vec.where(sp_front, sp_outward, -sp_outward))
+
+    # --- triangle branch -----------------------------------------------
+    if _has_mesh(scene):
+        if tri_vals is None:
+            raise ValueError("refine_hit: a scene with meshes needs the ids pass's tri_vals")
+        wtable = tri_vals.get("table")
+        if wtable is None:
+            wtable = slot_tri_table(scene)
+        f = _FetchTriRows.apply(wtable, tri_vals["slot"], *(tri_vals[k] for k in _DIFF_KEYS))
+        p0, e1, e2 = Vec3(*f[0:3]), Vec3(*f[3:6]), Vec3(*f[6:9])
+    else:
+        zf = torch.zeros((n,), device=dev)
+        p0, e1, e2 = Vec3(zf, zf, zf), Vec3(zf, zf + 1.0, zf), Vec3(zf, zf, zf + 1.0)
+    h = rd.cross(e2)
+    det = e1.dot(h)
+    f = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
+    q = (ro - p0).cross(e1)
+    tr_t = f * e2.dot(q)
+    tr_point = ro + rd * tr_t
+    tr_outward = e1.cross(e2).normalize()
+    tr_front = rd.dot(tr_outward) < 0.0
+    tr_normal = vec.where(tr_front, tr_outward, -tr_outward)
+
+    # --- select --------------------------------------------------------
+    is_tri = ids.kind == PRIM_TRIANGLE
+    zero = Vec3.full((n,), 0.0, 0.0, 0.0, device=dev)
+    return Hit(
+        mask=mask,
+        t=torch.where(mask, torch.where(is_tri, tr_t, sp_t), BIG_T),
+        point=vec.where(mask, vec.where(is_tri, tr_point, sp_point), zero),
+        normal=vec.where(mask, vec.where(is_tri, tr_normal, sp_normal), zero),
+        front=torch.where(is_tri, tr_front, sp_front) & mask,
+        mat_id=torch.where(mask, scene.obj_mat[safe_obj].long(), 0),
+    )
 
 
 def background_color(scene: SceneArrays, rd: Vec3) -> Vec3:

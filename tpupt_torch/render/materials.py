@@ -24,6 +24,7 @@ from tpupt_torch.core.types import (
     MAT_METAL,
     Hit,
     SceneArrays,
+    table_rows,
 )
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.sampling.rng import bounce_counter, uniform
@@ -33,16 +34,17 @@ INV_PI = 0.3183098861837907
 
 
 def _material_rows(scene: SceneArrays, mat_id: torch.Tensor):
-    """Every material field per lane, by exact gathers.  Returns
-    (mat_type (N,), albedo Vec3, fuzz (N,), ior (N,), emission Vec3)."""
+    """Every material field per lane, by exact gathers (``table_rows``).
+    Returns (mat_type (N,), albedo Vec3, fuzz (N,), ior (N,), emission
+    Vec3)."""
     mats = scene.materials
     m = mat_id.long()
     return (
         mats.mat_type[m],
-        Vec3(*mats.albedo[m].unbind(-1)),
-        mats.fuzz[m],
-        mats.ior[m],
-        Vec3(*mats.emission[m].unbind(-1)),
+        Vec3(*table_rows(mats.albedo, m).unbind(-1)),
+        table_rows(mats.fuzz, m),
+        table_rows(mats.ior, m),
+        Vec3(*table_rows(mats.emission, m).unbind(-1)),
     )
 
 
