@@ -3,7 +3,11 @@ kernels from the sources in this checkout, holds each against its torch
 twin at the main path's shapes, renders the bunny scene at full size and
 checks the result, then takes the gradient of a full-size differentiable
 render with respect to every scene parameter, holds it against the twin's
-at 256^2 and runs the denoiser's backward pass.
+at 256^2 and runs the denoiser's backward pass.  Then next-event
+estimation: the any-hit shadow kernel against its twin (and both forms of
+the closest-hit kernel on the area-light scene's own rays), the two Cornell
+scenes rendered at BASELINE config 2's size (held against the twins at
+128^2), and a fwd+bwd step on the area-light Cornell box.
 
     python chip_smoke.py
 
@@ -13,8 +17,9 @@ it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
   * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
     its launches on its main path (the forward render; the fwd+bwd step
-    for the payload form), its measured error and times, and its bound
-    (the work its inputs need at the card's published peaks),
+    for the payload form; the cornell_area render for the any-hit kernel),
+    its measured error and times, and its bound (the work its inputs need
+    at the card's published peaks),
   * {"ok": true, "device": {...}} as the last line.
 """
 
@@ -37,6 +42,7 @@ sys.path.insert(0, ROOT)
 import tpupt_torch  # noqa: E402  (needs the repository beside this script)
 from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noqa: E402
 from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
+from tpupt_torch.core.vec import Vec3  # noqa: E402
 from tpupt_torch.diff.params import MATERIAL_LEAVES, PARAM_LEAVES  # noqa: E402
 from tpupt_torch.render import integrator, intersect  # noqa: E402
 from tpupt_torch.render.materials import shade  # noqa: E402
@@ -49,6 +55,12 @@ SIZE, SPP, MAX_BOUNCES, RR = 1024, 16, 50, 8  # the main path's render
 # the forward render's counts on bunny.json; the differentiable path must not move them
 FWD_LAUNCHES, FWD_SEGMENTS = 94, 25_417_152
 DIFF_SPP, DIFF_BOUNCES = 4, 8  # the fwd+bwd step (bench.py's _bench_fwd_bwd)
+# the NEE renders: BASELINE config 2's size, depth and roulette; cornell.json
+# at its 4 spp, cornell_area.json at its own sampler's 16; the fwd+bwd step
+# on cornell_area at 4 spp
+NEE_SIZE, NEE_BOUNCES, NEE_RR = 512, 4, 2
+NEE_SPP = {"cornell.json": 4, "cornell_area.json": 16}
+NEE_DIFF_SPP = 4
 OUT = os.path.join(ROOT, "chiprun_out")
 # published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
 # outside the tensor cores, HBM3 bandwidth
@@ -181,19 +193,25 @@ ro, rd = generate_rays(desc.camera.to(DEV), SIZE, SIZE, fx, fy)
 
 
 def sphere_seed(ro, rd, t_min, active):
-    z = torch.zeros(n, device=DEV)
+    z = torch.zeros(ro.x.shape[0], device=DEV)
     return intersect._sphere_pass(
         scene, ro, rd, t_min, active, z + intersect.BIG_T, z.int() - 1, z.long() - 1,
         z.long() - 1,
     )[0]
 
 
-def compare_sweep(label, ro, rd, t_min, active):
-    """The kernel against its twin on one packed batch, all six outputs
-    exact; the work the twin's loop counts, the bound and the times."""
-    t_seed = sphere_seed(ro, rd, t_min, active)
-    rows, act_p = packets._pack_rows(ro, rd, t_min, t_seed, active)
-    args = (rows, act_p, scene.tre_min, scene.tre_max, scene.tre_tris, L)
+def pack(ro, rd, t_min, active):
+    """The rows and active mask intersect_treelets hands the sweep on
+    bunny.json, the sphere pass's t as the seed."""
+    return packets._pack_rows(ro, rd, t_min, sphere_seed(ro, rd, t_min, active), active)
+
+
+def compare_sweep(label, scn, rows, act_p):
+    """The kernel against its twin on one packed batch of ``scn``'s table,
+    all six outputs exact; the work the twin's loop counts, the bound and
+    the times."""
+    k3, l3 = scn.tre_min.shape[0], scn.s_leaf_size
+    args = (rows, act_p, scn.tre_min, scn.tre_max, scn.tre_tris, l3)
     out_k = sweep_kernel.treelet_closest_hit(*args)
     work = {}
     out_p = sweep_kernel.treelet_closest_hit_plain(*args, stats=work)
@@ -202,53 +220,62 @@ def compare_sweep(label, ro, rd, t_min, active):
     hit = out_k[1] >= 0
     err = float((out_k[0][hit] - out_p[0][hit]).abs().max()) if bool(hit.any()) else 0.0
     ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit(*args), 20)
-    # the whole intersect_treelets call, packing included
-    call_ms = cuda_ms(lambda: packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active), 20)
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args), 2)
     lanes = act_p.numel()
     flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
     # each input read once (8 f32 rows + act per lane, boxes and blocks per
     # treelet), each of the 6 outputs written once
-    nbytes = lanes * (8 * 4 + 1 + 6 * 4) + K * (6 + 13 * L) * 4
+    nbytes = lanes * (8 * 4 + 1 + 6 * 4) + k3 * (6 + 13 * l3) * 4
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"{label}: {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
+    print(f"{label}: K={k3}; {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
           f"{int(hit.sum())} mesh hits; all 6 outputs equal to the twin")
     print(f"  work: {work['supers_hit']} supers hit, {work['slab_tests']} slab tests, "
           f"{work['visits']} treelet visits (at most {work['visits_max']} in a packet), "
-          f"{work['mt_pairs']} MT pairs = {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
-    print(f"  kernel {ms:.4f} ms (intersect_treelets call {call_ms:.4f} ms), twin {plain_ms:.3f} ms; "
+          f"{work['mt_pairs']} MT pairs = {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB")
+    print(f"  kernel {ms:.4f} ms, twin {plain_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}, {PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
           f"{bound_ms / ms:.1%} of it")
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err, hits=int(hit.sum()), work=work, gflop=flops / 1e9)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, hits=int(hit.sum()), work=work, gflop=flops / 1e9, treelets=k3)
+
+
+def call_ms(ro, rd, t_min, active):
+    """The whole intersect_treelets call on bunny.json, packing included."""
+    t_seed = sphere_seed(ro, rd, t_min, active)
+    ms = cuda_ms(lambda: packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active), 20)
+    print(f"  intersect_treelets call {ms:.4f} ms")
+    return ms
 
 
 t_min = torch.full((n,), 1e-4, device=DEV)
-primary = compare_sweep("pixel-centre primaries", ro, rd, t_min, torch.ones(n, dtype=torch.bool,
-                                                                            device=DEV))
+all_lanes = torch.ones(n, dtype=torch.bool, device=DEV)
+primary = compare_sweep("pixel-centre primaries", scene, *pack(ro, rd, t_min, all_lanes))
+primary["call_ms"] = call_ms(ro, rd, t_min, all_lanes)
 # secondaries: one bounce of the render's own jittered primaries
 pix = torch.arange(n, device=DEV)
 st, seed = integrator._fresh_state(scene, desc.camera.to(DEV), SIZE, SIZE, pix, 0)
 _ids, hit0 = intersect.intersect_scene_ids(scene, st["ro"], st["rd"], st["t_min"], st["alive"])
 ro2, rd2, tmin2, *_ = shade(scene, hit0, st["ro"], st["rd"], st["t_min"], st["color"], seed,
                             torch.zeros_like(pix))
-secondary = compare_sweep("secondaries after bounce 0", ro2, rd2, tmin2, hit0.mask)
+secondary = compare_sweep("secondaries after bounce 0", scene, *pack(ro2, rd2, tmin2, hit0.mask))
+secondary["call_ms"] = call_ms(ro2, rd2, tmin2, hit0.mask)
 
 # --- 3a ------------------------------------------------------------------
 phase("3a treelet_closest_hit(payload=True) vs twin, same inputs, on the rebaked table")
 with torch.no_grad():
     scene_r = rebake_treelets(scene)  # the table the differentiable render traces
-    table_r = intersect.slot_tri_table(scene_r)
 UNIT = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=DEV)
 
 
-def compare_payload(label, ro, rd, t_min, active):
-    """The payload form against its twin (all 15 outputs exact) and against
-    the 6-channel kernel (its 6 outputs exact); the payload against the
-    slot table's rows; both kernels' times in turns."""
-    t_seed = sphere_seed(ro, rd, t_min, active)
-    rows, act_p = packets._pack_rows(ro, rd, t_min, t_seed, active)
-    args = (rows, act_p, scene_r.tre_min, scene_r.tre_max, scene_r.tre_tris, L)
+def compare_payload(label, scn_r, rows, act_p):
+    """The payload form on one packed batch of the rebaked table ``scn_r``
+    against its twin (all 15 outputs exact) and against the 6-channel
+    kernel (its 6 outputs exact); the payload against the slot table's
+    rows; both kernels' times in turns."""
+    k3, l3 = scn_r.tre_min.shape[0], scn_r.s_leaf_size
+    with torch.no_grad():
+        table_r = intersect.slot_tri_table(scn_r)
+    args = (rows, act_p, scn_r.tre_min, scn_r.tre_max, scn_r.tre_tris, l3)
     out_k = sweep_kernel.treelet_closest_hit(*args, payload=True)
     work = {}
     out_p = sweep_kernel.treelet_closest_hit_plain(*args, stats=work, payload=True)
@@ -270,13 +297,13 @@ def compare_payload(label, ro, rd, t_min, active):
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args, payload=True), 2)
     lanes = act_p.numel()
     flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
-    nbytes = lanes * (8 * 4 + 1 + 6 * 4 + 9 * 4) + K * (6 + 13 * L) * 4
+    nbytes = lanes * (8 * 4 + 1 + 6 * 4 + 9 * 4) + k3 * (6 + 13 * l3) * 4
     bound_ms, bound_by = bound(flops, nbytes)
     ms = sum(pay_ms) / 2
-    print(f"{label}: {int(hit.sum())} mesh hits; all 15 outputs equal to the twin, the first 6 to "
-          f"the 6-channel kernel's, the payload to the slot table's rows")
+    print(f"{label}: K={k3}; {int(hit.sum())} mesh hits; all 15 outputs equal to the twin, the "
+          f"first 6 to the 6-channel kernel's, the payload to the slot table's rows")
     print(f"  work: {work['slab_tests']} slab tests, {work['visits']} visits, {work['mt_pairs']} MT "
-          f"pairs = {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+          f"pairs = {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB")
     print(f"  payload kernel {pay_ms[0]:.4f}, {pay_ms[1]:.4f} ms; 6-channel kernel {six_ms[0]:.4f}, "
           f"{six_ms[1]:.4f} ms (in turns): payload/6-channel {ms / (sum(six_ms) / 2):.3f}; "
           f"twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
@@ -285,13 +312,13 @@ def compare_payload(label, ro, rd, t_min, active):
                 gflop=flops / 1e9)
 
 
-pay_primary = compare_payload("pixel-centre primaries", ro, rd, t_min,
-                              torch.ones(n, dtype=torch.bool, device=DEV))
-pay_secondary = compare_payload("secondaries after bounce 0", ro2, rd2, tmin2, hit0.mask)
+pay_primary = compare_payload("pixel-centre primaries", scene_r, *pack(ro, rd, t_min, all_lanes))
+pay_secondary = compare_payload("secondaries after bounce 0", scene_r,
+                                *pack(ro2, rd2, tmin2, hit0.mask))
 
 # --- 4 -------------------------------------------------------------------
 phase(f"4 main path: bunny.json render {SIZE}^2, {SPP} spp, {MAX_BOUNCES} bounces, rr {RR}")
-counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step)
+counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step, sweep_kernel.treelet_any_hit)
 
 
 def reset_counts():
@@ -318,6 +345,7 @@ rays = int(rays)
 img = buf.color
 assert launches["treelet_closest_hit"] > 0, launches
 assert launches["treelet_closest_hit(payload=True)"] == 0, launches
+assert launches["treelet_any_hit"] == 0, launches  # bunny.json has no emitter
 assert (launches["treelet_closest_hit"], rays) == (FWD_LAUNCHES, FWD_SEGMENTS), \
     f"the forward render's counts moved: {launches}, {rays} segments"
 assert rays > n, rays
@@ -384,20 +412,23 @@ def leaf(params, name):
     return params["materials"][name[10:]] if name.startswith("materials.") else params[name]
 
 
-def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None, denoise=False):
+def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None, denoise=False,
+            scn=None, cam=None, any_hit=None):
     """One step: a differentiable render from fresh params, the loss, its
-    backward.  Returns (loss, segments, {leaf: grad}, buffers, forward s,
-    backward s), the two times on the host clock between synchronisations."""
+    backward, on ``scn`` seen by ``cam`` (bunny.json's by default).  Returns
+    (loss, segments, {leaf: grad}, buffers, forward s, backward s), the two
+    times on the host clock between synchronisations."""
+    scn, cam = (scene, desc.camera) if scn is None else (scn, cam)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = tpupt_torch.extract_params(scene)
+    params = tpupt_torch.extract_params(scn)
     buf, rays = tpupt_torch.render_image(
-        tpupt_torch.with_params(scene, params), desc.camera, size, size, spp=spp,
-        max_bounces=max_bounces, differentiable=True, intersect_fn=intersect_fn)
+        tpupt_torch.with_params(scn, params), cam, size, size, spp=spp,
+        max_bounces=max_bounces, differentiable=True, intersect_fn=intersect_fn, any_hit=any_hit)
     if denoise:
         img = tpupt_torch.atrous_denoise(buf.color.reshape(size, size, 3),
                                          buf.normal.reshape(size, size, 3),
-                                         buf.depth.reshape(size, size), desc.camera, filter_size=10)
+                                         buf.depth.reshape(size, size), cam, filter_size=10)
         loss = (img ** 2).sum()
     else:
         loss = (buf.color ** 2).sum()
@@ -517,6 +548,245 @@ print(f"render + denoise + backward {dn_wall:.3f} s wall (the step without the d
       f"{d_wall:.3f} s); the filter's forward and backward alone {dn_ms:.2f} ms; "
       f"albedo grad max {float(dn_grads['materials.albedo'].abs().max()):.4g}")
 
+# --- 9 -------------------------------------------------------------------
+phase("9 treelet_any_hit vs twin: shadow rays on bunny.json (1024^2 secondaries' hits) and "
+      "cornell_area.json (512^2, first bounce); that bounce's treelet_closest_hit rows, both forms")
+
+
+def compare_any_hit(label, scn, rows, act_p):
+    """The any-hit kernel against its twin on one packed batch (every
+    lane's occlusion equal); the work the twin counts, the bound and the
+    times."""
+    k9, l9 = scn.tre_min.shape[0], scn.s_leaf_size
+    args = (rows, act_p, scn.tre_min, scn.tre_max, scn.tre_tris, l9)
+    out_k = sweep_kernel.treelet_any_hit(*args)
+    work = {}
+    out_p = sweep_kernel.treelet_any_hit_plain(*args, stats=work)
+    torch.cuda.synchronize()
+    require_equal(f"treelet_any_hit {label}", (out_k,), (out_p,))
+    ms = cuda_ms(lambda: sweep_kernel.treelet_any_hit(*args), 20)
+    plain_ms = cuda_ms(lambda: sweep_kernel.treelet_any_hit_plain(*args), 2)
+    lanes = act_p.numel()
+    flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
+    # each input read once (8 f32 rows + act per lane, boxes and blocks per
+    # treelet), one byte written per lane
+    nbytes = lanes * (8 * 4 + 1 + 1) + k9 * (6 + 13 * l9) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    occluded = int(out_k.sum())
+    print(f"{label}: K={k9}; {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
+          f"{occluded} occluded; every lane equal to the twin")
+    print(f"  work: {work['supers_hit']} supers hit, {work['slab_tests']} slab tests, "
+          f"{work['visits']} treelet visits (at most {work['visits_max']} in a packet), "
+          f"{work['mt_pairs']} MT pairs of unoccluded lanes = {flops / 1e9:.4f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB")
+    print(f"  kernel {ms:.4f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of it  [{smi}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+                occluded=occluded, work=work, gflop=flops / 1e9, treelets=k9)
+
+
+# bunny.json: the hits of phase 3's secondaries, offset along the normal,
+# toward a fixed point above the scene
+with torch.no_grad():
+    _ids1, hit1 = intersect.intersect_scene_ids(scene, ro2, rd2, tmin2, hit0.mask)
+    p_sh = hit1.point + hit1.normal * 1e-4
+    to_sky = Vec3(*(torch.full_like(p_sh.x, v) for v in (0.0, 4.0, -1.5))) - p_sh
+    dist = to_sky.length()
+    rows_sh, act_sh = packets._pack_rows(p_sh, to_sky * (1.0 / dist), torch.full_like(dist, 1e-4),
+                                         0.999 * dist, hit1.mask)
+shadow_bunny = compare_any_hit("bunny.json shadow rays", scene, rows_sh, act_sh)
+
+# cornell_area.json: the rows the first bounce of the render hands the
+# any-hit kernel (its only light is the quad, so one call) and the
+# closest-hit kernel (K = 1: the one-level cull)
+ensure_models(names=["quad.obj"])
+nee_desc = {name: scene_from_json(os.path.join(locate_asset_path(), "scenes", name))
+            for name in NEE_SPP}
+nee_scene = {name: d.build(leaf_size=32, device=DEV) for name, d in nee_desc.items()}
+area, area_cam = nee_scene["cornell_area.json"], nee_desc["cornell_area.json"].camera.to(DEV)
+captured, captured_ch = [], []
+
+
+def record_any_hit(*args):
+    captured.append(args)
+    return sweep_kernel.treelet_any_hit(*args)
+
+
+def record_closest_hit(*args, **kw):
+    captured_ch.append(args)
+    return sweep_kernel.treelet_closest_hit(*args, **kw)
+
+
+with torch.no_grad():
+    pix_a = torch.arange(NEE_SIZE * NEE_SIZE, device=DEV)
+    st_a, seed_a = integrator._fresh_state(area, area_cam, NEE_SIZE, NEE_SIZE, pix_a, 0)
+    integrator._bounce_body(
+        area, seed_a, st_a, torch.zeros_like(pix_a), None,
+        functools.partial(intersect.intersect_scene_ids, closest_hit=record_closest_hit),
+        any_hit=record_any_hit)
+    area_r = rebake_treelets(area)  # the table the fwd+bwd step traces
+assert len(captured) == len(captured_ch) == 1, (len(captured), len(captured_ch))
+shadow_area = compare_any_hit("cornell_area.json bounce-0 shadow rays", area, *captured[0][:2])
+# the same bounce's closest-hit rows, through both forms: the forward
+# render's 6-channel call and, on the rebaked table, the fwd+bwd step's
+# payload call (its first bounce packs the same rows)
+closest_area = compare_sweep("cornell_area.json bounce-0 rays", area, *captured_ch[0][:2])
+pay_area = compare_payload("cornell_area.json bounce-0 rays", area_r, *captured_ch[0][:2])
+
+# --- 10 ------------------------------------------------------------------
+phase(f"10 NEE renders: cornell.json and cornell_area.json, {NEE_SIZE}^2, {NEE_BOUNCES} bounces, "
+      f"rr {NEE_RR}; spp {NEE_SPP}")
+
+
+def nee_render(name, size=NEE_SIZE, intersect_fn=None, any_hit=None):
+    """(buffers, segments, trips): trips count the calls of the hit pass."""
+    fn = intersect_fn or intersect.intersect_scene_ids
+
+    def trips(*args):
+        trips.calls += 1
+        return fn(*args)
+
+    trips.calls = 0
+    buf, rays = tpupt_torch.render_image(
+        nee_scene[name], nee_desc[name].camera, size, size, spp=NEE_SPP[name],
+        max_bounces=NEE_BOUNCES, rr_start=NEE_RR, intersect_fn=trips, any_hit=any_hit, device=DEV)
+    return buf, int(rays), trips.calls
+
+
+def drive_nee(name, calls):
+    """The main path on one scene: counts reset before and read after each
+    call, equal between calls; first-call time, walls of the next calls."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf, rays, trips = nee_render(name)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = read_counts()
+    img = buf.color
+    assert tuple(img.shape) == (NEE_SIZE * NEE_SIZE, 3) and bool(torch.isfinite(img).all()), name
+    assert bool(torch.isfinite(buf.normal).all() and torch.isfinite(buf.depth).all()), name
+    mean = img.mean(dim=0).tolist()
+    assert 0.02 < min(mean) and max(mean) < 10.0, f"{name}: implausible mean colour {mean}"
+    walls = []
+    for _ in range(calls):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _buf2, rays2, trips2 = nee_render(name)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert (rays2, trips2, read_counts()) == (rays, trips, counts), \
+            f"{name}: segments, trips or launches moved between calls"
+    wall = sorted(walls)[len(walls) // 2]
+    print(f"{name}: first call {first:.3f} s; {trips} trips, {rays} traced segments, launches "
+          f"{counts}; mean colour {[round(x, 4) for x in mean]}")
+    print(f"  calls 2-{calls + 1}: {', '.join(f'{w:.3f}' for w in walls)} s wall; median {wall:.3f} s = "
+          f"{rays / wall / 1e6:.3f} traced Mrays/s  [{smi}]")
+    np.save(os.path.join(OUT, f"{name[:-5]}_{NEE_SIZE}_{NEE_SPP[name]}spp.npy"),
+            img.reshape(NEE_SIZE, NEE_SIZE, 3).cpu().numpy().astype(np.float16))
+    return dict(rays=rays, trips=trips, launches=counts, first_call_s=first, walls_s=walls,
+                wall_s=wall, mrays_per_s=rays / wall / 1e6, mean_colour=mean)
+
+
+nee_fwd = {name: drive_nee(name, 3) for name in NEE_SPP}
+assert sum(nee_fwd["cornell.json"]["launches"].values()) == 0  # no mesh: no sweep at all
+area_launches = nee_fwd["cornell_area.json"]["launches"]
+assert area_launches["treelet_any_hit"] > 0 and area_launches["treelet_closest_hit"] > 0, \
+    area_launches
+# device time of one more cornell_area render, by kernel
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    nee_render("cornell_area.json")
+    torch.cuda.synchronize()
+kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+with open(os.path.join(OUT, "cornell_area_render_profile.txt"), "w") as fh:
+    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+area_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+area_any_ms = sum(e.self_device_time_total for e in kern if "treelet_any_hit_kernel" in e.key) / 1e3
+print(f"profiled cornell_area render: device busy {area_busy_ms:.1f} ms = "
+      f"{area_busy_ms / 1e3 / nee_fwd['cornell_area.json']['wall_s']:.1%} of the median wall; "
+      f"treelet_any_hit_kernel {area_any_ms:.2f} ms; {sum(e.count for e in kern)} kernels"
+      if area_busy_ms > 0 else "profiled render: the profiler recorded no device time (not measured)")
+nee_fwd["cornell_area.json"].update(profiled_device_busy_ms=area_busy_ms,
+                                    profiled_any_hit_ms=area_any_ms)
+
+twin_fwd = functools.partial(intersect.intersect_scene_ids,
+                             closest_hit=sweep_kernel.treelet_closest_hit_plain)
+for name in NEE_SPP:
+    bk, rk, _ = nee_render(name, 128)
+    bp, rp, _ = nee_render(name, 128, twin_fwd, sweep_kernel.treelet_any_hit_plain)
+    assert rk == rp, (name, rk, rp)
+    gaps = []
+    for key in ("color", "normal", "depth"):
+        a, b = getattr(bk, key), getattr(bp, key)
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-5), (name, key)
+        gaps.append(f"{key} {float((a - b).abs().max()):.3g}")
+    print(f"{name} at 128^2, kernels vs twins: {rk} segments each; max |difference| "
+          + ", ".join(gaps))
+
+# --- 11 ------------------------------------------------------------------
+phase(f"11 fwd+bwd on cornell_area.json: {NEE_SIZE}^2, {NEE_DIFF_SPP} spp, {NEE_BOUNCES} bounces, "
+      f"loss sum(color^2), backward to every extract_params leaf")
+area_step = functools.partial(fwd_bwd, NEE_SIZE, NEE_DIFF_SPP, NEE_BOUNCES, scn=area,
+                              cam=area_cam)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+mem0 = torch.cuda.memory_allocated()
+reset_counts()
+t0 = time.perf_counter()
+a_loss, a_rays, a_grads, _, _, _ = area_step()
+torch.cuda.synchronize()
+a_first_s = time.perf_counter() - t0
+a_launches = read_counts()
+a_peak = torch.cuda.max_memory_allocated() - mem0
+assert a_launches["treelet_closest_hit(payload=True)"] > 0 and a_launches["treelet_any_hit"] > 0, \
+    a_launches
+assert a_launches["treelet_closest_hit"] == 0 and a_launches["winner_step"] == 0, a_launches
+assert bool(torch.isfinite(a_loss)) and a_rays > NEE_SIZE * NEE_SIZE, (a_loss, a_rays)
+for k, g in a_grads.items():
+    assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k}"
+assert float(a_grads["materials.emission"].abs().max()) > 0, "no gradient reached the emission"
+print(f"first call {a_first_s:.3f} s; launches {a_launches}; {a_rays} primal segments; loss "
+      f"{float(a_loss):.6g}; peak memory {a_peak / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB "
+      f"resident before it")
+print("  max |grad|: " + ", ".join(f"{k} {float(g.abs().max()):.4g}" for k, g in a_grads.items()))
+a_walls, a_split = [], []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _l, rays2, _g, _, f_s, b_s = area_step()
+    torch.cuda.synchronize()
+    a_walls.append(time.perf_counter() - t0)
+    a_split.append((f_s, b_s))
+    assert rays2 == a_rays, "the cornell_area fwd+bwd step's segment count is not deterministic"
+a_wall = sorted(a_walls)[1]
+print(f"calls 2-4: {', '.join(f'{w:.3f}' for w in a_walls)} s wall; median {a_wall:.3f} s = "
+      f"{a_rays / a_wall / 1e6:.3f} fwd+bwd Mrays/s (primal segments)  [{smi}]")
+print("  forward + loss / backward: " + ", ".join(f"{f:.3f} / {b:.3f} s" for f, b in a_split))
+with torch.profiler.profile(activities=acts) as prof:
+    area_step()
+    torch.cuda.synchronize()
+kav = prof.key_averages()
+with open(os.path.join(OUT, "cornell_area_fwd_bwd_profile.txt"), "w") as fh:
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
+a_busy_ms = sum(e.self_device_time_total for e in kav
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+print(f"profiled step: device busy {a_busy_ms:.1f} ms = {a_busy_ms / 1e3 / a_wall:.1%} of the median "
+      f"wall" if a_busy_ms > 0 else "profiled step: the profiler recorded no device time "
+      "(not measured)")
+lk, rk3, gk, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam)
+lp, rp3, gp, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam, intersect_fn=twin_diff,
+                          any_hit=sweep_kernel.treelet_any_hit_plain)
+assert rk3 == rp3, (rk3, rp3)
+assert torch.allclose(lk, lp, rtol=1e-5), (float(lk), float(lp))
+a_gap = {}
+for k in LEAVES:
+    scale = float(gp[k].abs().max())
+    assert torch.allclose(gk[k], gp[k], rtol=1e-5, atol=1e-5 * scale), k
+    a_gap[k] = float((gk[k] - gp[k]).abs().max()) / scale if scale > 0 else 0.0
+print(f"gradient parity at 128^2, 1 spp, kernels vs twins: {rk3} segments each; loss {float(lk):.7g} "
+      f"vs {float(lp):.7g}; largest gap {max(a_gap.values()):.3g} of its leaf's max |grad|")
+
 # --- report ----------------------------------------------------------------
 report = {
     "kernels": [dict(
@@ -524,11 +794,13 @@ report = {
         source="tpupt_torch/accel/csrc/treelet_kernels.cu",
         replaces="tpupt/accel/pallas_sweep.py:54",
         launches=launches["treelet_closest_hit"],
-        max_abs_err=max(primary["max_abs_err"], secondary["max_abs_err"]),
+        max_abs_err=max(primary["max_abs_err"], secondary["max_abs_err"],
+                        closest_area["max_abs_err"]),
         # the top-level times are the 1024^2 primaries'
         ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
         bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
-        inputs={"primaries": primary, "secondaries": secondary},
+        inputs={"primaries": primary, "secondaries": secondary,
+                "cornell_area_bounce0": closest_area},
     ), dict(
         # the same kernel's payload form (the JAX package's diff_payload
         # sweep, tpupt/accel/packets.py:845), launched by the fwd+bwd step
@@ -536,10 +808,23 @@ report = {
         source="tpupt_torch/accel/csrc/treelet_kernels.cu",
         replaces="tpupt/accel/pallas_sweep.py:54",
         launches=d_launches["treelet_closest_hit(payload=True)"],
-        max_abs_err=max(pay_primary["max_abs_err"], pay_secondary["max_abs_err"]),
+        max_abs_err=max(pay_primary["max_abs_err"], pay_secondary["max_abs_err"],
+                        pay_area["max_abs_err"]),
         ms=pay_primary["ms"], plain_ms=pay_primary["plain_ms"], bound_ms=pay_primary["bound_ms"],
         bound_by=pay_primary["bound_by"], library_ms=None,
-        inputs={"primaries": pay_primary, "secondaries": pay_secondary},
+        inputs={"primaries": pay_primary, "secondaries": pay_secondary,
+                "cornell_area_bounce0": pay_area},
+    ), dict(
+        # not Pallas in the JAX package (XLA intersect_treelets_anyhit); the
+        # top-level times are the cornell_area bounce-0 shadow rays'
+        name="treelet_any_hit", route="cuda",
+        source="tpupt_torch/accel/csrc/treelet_kernels.cu",
+        replaces="tpupt/accel/packets.py:961",
+        launches=area_launches["treelet_any_hit"],
+        max_abs_err=max(shadow_bunny["max_abs_err"], shadow_area["max_abs_err"]),
+        ms=shadow_area["ms"], plain_ms=shadow_area["plain_ms"], bound_ms=shadow_area["bound_ms"],
+        bound_by=shadow_area["bound_by"], library_ms=None,
+        inputs={"bunny_shadow": shadow_bunny, "cornell_area_bounce0": shadow_area},
     )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
@@ -560,6 +845,11 @@ report = {
                     profiled_device_busy_ms=d_busy_ms, profiled_sweep_ms=d_sweep_ms,
                     profiled_index_add_ms=d_index_add_ms, grad_parity_gap=grad_gap,
                     denoise_step_wall_s=dn_wall, denoise_fwd_bwd_ms=dn_ms),
+    "nee_render": nee_fwd,
+    "nee_fwd_bwd": dict(scene="cornell_area.json", rays=a_rays, wall_s=a_wall, walls_s=a_walls,
+                        mrays_per_s=a_rays / a_wall / 1e6, forward_backward_s=a_split,
+                        first_call_s=a_first_s, peak_bytes=a_peak, launches=a_launches,
+                        profiled_device_busy_ms=a_busy_ms, grad_parity_gap=a_gap),
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
     config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR,

@@ -55,6 +55,31 @@ def _icospheres(subdiv, offsets):
 
 
 @pytest.fixture(scope="module")
+def lex():
+    """test_lex_selection.py's scene: two icosphere(3) instances, K >= 96."""
+    scene = _icospheres(3, ([0, 0, 0], [1.5, 0.3, -1]))
+    assert scene.tre_min.shape[0] >= packets._TWOLEVEL_MIN_K
+    return scene
+
+
+def lex_shadow_rays(window, device, seed=5):
+    """test_lex_selection.py's 32 x 32 pixel-centre rays with a t window:
+    "fixed", 4.0 on every lane, or "random", per-lane ends from [0.5, 6]
+    and a random active mask (test_torch_nee.py's inputs)."""
+    cam = make_camera(position=(0.13, 0.071, 3.03), vfov=1.35)
+    fx, fy = pixel_centers(32, 32, device=device)
+    ro, rd = generate_rays(cam, 32, 32, fx, fy)
+    n = fx.shape[0]
+    t_min = torch.full((n,), 1e-4, device=device)
+    if window == "fixed":
+        return ro, rd, t_min, torch.full((n,), 4.0, device=device), torch.ones(
+            n, dtype=torch.bool, device=device)
+    r = np.random.default_rng(seed)
+    t_limit = torch.from_numpy(r.uniform(0.5, 6.0, n).astype(np.float32)).to(device)
+    return ro, rd, t_min, t_limit, torch.from_numpy(r.random(n) < 0.8).to(device)
+
+
+@pytest.fixture(scope="module")
 def big():
     """K = 172 treelets: the kernel and the twin run the two-level cull."""
     scene = _icospheres(3, ([0, 0, 0], [1.5, 0.3, -1], [-1.4, -0.2, -0.6]))
@@ -153,6 +178,10 @@ def test_wrappers_refuse_other_devices(ico):
     act = torch.empty((1, 256), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):
         sweep_kernel.treelet_closest_hit(
+            rows, act, meta.tre_min, meta.tre_max, meta.tre_tris, meta.s_leaf_size
+        )
+    with pytest.raises(ValueError):
+        sweep_kernel.treelet_any_hit(
             rows, act, meta.tre_min, meta.tre_max, meta.tre_tris, meta.s_leaf_size
         )
     with pytest.raises(ValueError):
@@ -271,6 +300,58 @@ def test_kernel_equals_twin_on_super_plane_rays(big, cuda_device):
     sk, _ = _kernel_equals_twin(scene, ro, rd, cat(t_min, t_min[:k]), cat(t_seed, t_seed[:k]),
                                 cat(active, on))
     assert int((sk[:k] >= 0).sum()) > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["fixed", "random"])
+def test_treelet_any_hit_kernel_equals_twin(lex, window, cuda_device):
+    """The any-hit mode against its twin on the lex scene's rays, the
+    two-level cull included: every lane's occlusion equal."""
+    scene = lex.to(cuda_device)
+    ro, rd, t_min, t_limit, active = lex_shadow_rays(window, cuda_device)
+    before = sweep_kernel.treelet_any_hit.launches
+    occ_k = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active)
+    occ_p = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active,
+                                              any_hit=sweep_kernel.treelet_any_hit_plain)
+    torch.cuda.synchronize()
+    assert sweep_kernel.treelet_any_hit.launches == before + 1
+    assert occ_k.dtype == torch.bool and torch.equal(occ_k, occ_p)
+    assert 0 < int(occ_k.sum()) < int(active.sum()) and not bool(occ_k[~active].any())
+
+
+@pytest.mark.cuda
+def test_nee_render_kernel_equals_twin(cuda_device):
+    """A mesh, an emissive quad and a sphere lamp: the forward render
+    through both kernels equals the render through both twins."""
+    v, f = icosphere(2)
+    d = SceneDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
+    d.add_material("m", "lambertian", albedo=(0.7, 0.7, 0.7))
+    d.add_material("qlamp", "diffuse_light", emit=(8.0, 6.0, 4.0))
+    d.add_material("slamp", "diffuse_light", emit=(4.0, 4.0, 8.0))
+    d.add_sphere(100.0, np.asarray(m3.mat_translate([0, -101.0, -1.0])), "m")
+    d.add_mesh("mesh", v, f)
+    d.add_mesh_object("mesh", np.asarray(m3.mat_translate([0, 0, -1.5])), "m")
+    quad = np.array([[-0.5, 1.2, -1.0], [0.5, 1.2, -1.0], [0.5, 1.2, -2.0], [-0.5, 1.2, -2.0]],
+                    np.float32)
+    d.add_mesh("quad", quad, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+    d.add_mesh_object("quad", np.eye(4), "qlamp")
+    d.add_sphere(0.2, np.asarray(m3.mat_translate([1.2, 0.6, -1.5])), "slamp")
+    scene = d.build(device=cuda_device)
+    cam = make_camera(position=(0, 0, 1.5), vfov=np.pi / 2)
+    kw = dict(spp=2, max_bounces=4, rr_start=2)
+    twin = functools.partial(
+        intersect_scene_ids, closest_hit=sweep_kernel.treelet_closest_hit_plain
+    )
+    before = sweep_kernel.treelet_any_hit.launches
+    bk, rk = render_image(scene, cam, 48, 40, **kw)
+    launched = sweep_kernel.treelet_any_hit.launches - before
+    bp, rp = render_image(scene, cam, 48, 40, intersect_fn=twin,
+                          any_hit=sweep_kernel.treelet_any_hit_plain, **kw)
+    assert launched > 0 and sweep_kernel.treelet_any_hit.launches - before == launched
+    assert int(rk) == int(rp) > 48 * 40 * 2
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(bk, key), getattr(bp, key)), key
+    assert float(bk.color.max()) > 0.05
 
 
 @pytest.mark.cuda

@@ -190,14 +190,22 @@ def test_accumulate_matches_jax(iteration):
 
 
 def test_unported_paths_raise(sphere_scene):
+    """The per-sample forward loop is not ported and raises; a scene with
+    an emitter renders (next-event estimation), forward and
+    differentiable, with finite output (its parity is test_torch_nee.py's)."""
     pscene = port_scene(sphere_scene)
     cam = make_camera()
     with pytest.raises(NotImplementedError):
         render_image(pscene, cam, 8, 8, chain_samples=False)
-    d = SceneDescription()
+    d = SceneDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
+    d.add_material("floor", "lambertian", albedo=(0.7, 0.7, 0.7))
     d.add_material("lamp", "diffuse_light", emit=(4.0, 4.0, 4.0))
-    d.add_sphere(0.3, np.eye(4), "lamp")
+    d.add_sphere(100.0, np.asarray(jm3.mat_translate([0, -100.5, -1])), "floor")
+    d.add_sphere(0.3, np.asarray(jm3.mat_translate([0, 0.7, -1.5])), "lamp")
+    lamp = d.build(device="cpu")
+    assert lamp.has_nee
     for differentiable in (False, True):
-        with pytest.raises(NotImplementedError):
-            render_image(d.build(device="cpu"), cam, 8, 8, differentiable=differentiable)
+        buf, rays = render_image(lamp, cam, 8, 8, max_bounces=3, differentiable=differentiable)
+        assert int(rays) >= 64 and bool(torch.isfinite(buf.color).all())
+        assert float(buf.color.max()) > 0.0  # lit by the lamp alone
     assert dataclasses.is_dataclass(pscene)

@@ -89,6 +89,8 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_treelet_smem_bytes.argtypes = [_I, _I]
     lib.tpupt_treelet_closest_hit.restype = _I
     lib.tpupt_treelet_closest_hit.argtypes = [_P] * 12 + [_I, _I, _I] + [_P] * 8
+    lib.tpupt_treelet_any_hit.restype = _I
+    lib.tpupt_treelet_any_hit.argtypes = [_P] * 12 + [_I, _I, _I] + [_P] * 2
     lib.tpupt_winner_step.restype = _I
     lib.tpupt_winner_step.argtypes = [_P] * 11 + [_I, _I, _I] + [_P] * 7
     lib.tpupt_cuda_error_string.restype = ctypes.c_char_p

@@ -1,5 +1,5 @@
-"""Packet-treelet closest-hit intersection (counterpart of
-``tpupt/accel/packets.py``, forward closest hit only).
+"""Packet-treelet intersection (counterpart of ``tpupt/accel/packets.py``):
+the closest hit, and the any-hit occlusion test of shadow rays.
 
 Rays are folded into packets of 256 lanes.  Each packet walks the world
 treelet table front to back:
@@ -23,9 +23,10 @@ package's compaction ladder, fetch-R batching and lex/super selection are
 scheduling that leaves its results unchanged; the port keeps the flat
 semantics.
 
-The work is done by ``sweep_kernel.treelet_closest_hit``: a hand-written
-CUDA kernel for CUDA tensors, and for CPU tensors its plain twin, a
-lockstep loop built from the pieces in this module.
+The work is done by ``sweep_kernel.treelet_closest_hit`` (and
+``treelet_any_hit`` for shadow rays): a hand-written CUDA kernel for CUDA
+tensors, and for CPU tensors its plain twin, a lockstep loop built from
+the pieces in this module.
 """
 
 from __future__ import annotations
@@ -219,3 +220,22 @@ def intersect_treelets(scene, ro: Vec3, rd: Vec3, t_min, t_seed, active,
     keys = ("nx", "ny", "nz", "obj") + (_DIFF_KEYS if diff_payload else ())
     extras = {k: v.reshape(-1)[:n] for k, v in zip(keys, out[2:])}
     return t.reshape(-1)[:n], slot.reshape(-1)[:n], extras
+
+
+def intersect_treelets_anyhit(scene, ro: Vec3, rd: Vec3, t_min, t_limit, active, any_hit=None):
+    """Any-hit occlusion: True where an active lane's ray hits some
+    triangle at t in [t_min, t_limit] (both ends closed, as in
+    ``_dense_mt``).
+
+    The shadow-ray form of the walk: the t cap is the window end, an
+    occluded lane's t becomes -BIG (which takes it out of the packet's
+    liveness and of every later pair test), and a packet is done once its
+    next entry lies beyond every unoccluded lane's t.  ``any_hit`` defaults
+    to ``sweep_kernel.treelet_any_hit``; pass ``treelet_any_hit_plain`` to
+    run the twin on any device."""
+    if any_hit is None:
+        from tpupt_torch.accel.sweep_kernel import treelet_any_hit as any_hit
+    n = ro.x.shape[0]
+    rows, act_p = _pack_rows(ro, rd, t_min, t_limit, active)
+    occ = any_hit(rows, act_p, scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
+    return occ.reshape(-1)[:n]

@@ -12,6 +12,12 @@ treelet's L triangles while the next blocks load.  With ``payload=True``
 triangle p0, e1, e2, read from its block row by slot after the walk.  For
 CPU tensors it runs ``treelet_closest_hit_plain``, the lockstep loop
 described below.
+
+``treelet_any_hit`` launches the same kernel's any-hit mode for shadow
+rays, which replaces the JAX package's XLA ``intersect_treelets_anyhit``:
+the same cull, sort and block ring, and a walk in which each thread stops
+at its ray's first hit inside the window and an occluded ray drops out of
+the packet's exit test.  Its twin is ``treelet_any_hit_plain``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel import kernels
-from tpupt_torch.accel.packets import _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries
+from tpupt_torch.accel.packets import (
+    _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries, _dense_mt,
+)
 from tpupt_torch.accel.step_kernel import winner_step_plain
 
 
@@ -92,6 +100,81 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
     return out + _payload_rows(tre_tris, leaf, slot) if payload else out
 
 
+def treelet_any_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=None):
+    """Torch twin of ``treelet_any_hit``: ``treelet_closest_hit_plain``'s
+    cull and lockstep walk with the fold replaced by "some live pair is
+    ok".  A lane with an ok pair in the visited treelet is occluded and its
+    t becomes -BIG, so it fails every later pair test and no longer keeps
+    its packet alive; a packet is done when its next entry lies beyond
+    every unoccluded live lane's t.
+
+    ``stats``, when a dict, gains the cull's counts and the walk's
+    ``visits``, ``visits_max`` and ``mt_pairs`` (the lanes not yet occluded
+    at a visit times L, summed over visits)."""
+    np_, p = rows["rox"].shape
+    K = tre_min.shape[0]
+    dev = tre_tris.device
+    entry = _cull_entries(tre_min, tre_max, rows, act_p, stats)
+    visits = torch.zeros(np_, dtype=torch.int64, device=dev)
+    pairs = 0
+    t = rows["t"].clone()
+    blocks = tre_tris.view(K, 13, leaf)
+    ar = torch.arange(np_, device=dev)
+    ray = {k: rows[k][:, None, :] for k in _ROW_KEYS[:7]}
+    for _ in range(K):
+        ent, tid = torch.min(entry, dim=1)  # first index on ties
+        valid = (ent < BIG) & (ent <= t.amax(dim=1))
+        if not bool(valid.any()):
+            break
+        if stats is not None:
+            visits += valid
+            pairs += int(((t > -BIG) & valid[:, None]).sum()) * leaf
+        entry[ar, tid] = torch.where(valid, BIG, ent)
+        b = blocks[torch.where(valid, tid, 0)]  # (np, 13, L)
+        ok, _ = _dense_mt([b[:, c, :, None] for c in range(9)], ray, t[:, None, :])
+        occ = (ok & valid[:, None, None]).any(dim=1)
+        t = torch.where(occ, -BIG, t)
+    if stats is not None:
+        stats.update(visits=int(visits.sum()), visits_max=int(visits.max()), mt_pairs=pairs)
+    return act_p & (t == -BIG)
+
+
+def _checked_launch(name, rows, act_p, tre_min, tre_max, tre_tris, leaf):
+    """The checks both walk kernels make of their inputs, which are the
+    same, and the kernel library.  Returns (library, packets, treelets)."""
+    req = kernels.require
+    req(tre_tris.is_cuda, f"{name}: unsupported device {tre_tris.device}")
+    np_, p = rows["rox"].shape
+    K = tre_min.shape[0]
+    req(p == PACKET, f"{name}: packets must be {PACKET} wide, got {p}")
+    req(tuple(tre_min.shape) == (K, 3) and tuple(tre_max.shape) == (K, 3),
+        f"{name}: tre_min/tre_max must be (K, 3)")
+    req(tuple(tre_tris.shape) == (K, 13 * leaf),
+        f"{name}: tre_tris {tuple(tre_tris.shape)} != ({K}, {13 * leaf})")
+    req(tuple(act_p.shape) == (np_, p) and act_p.dtype == torch.bool,
+        f"{name}: act_p must be (np, 256) bool")
+    f32 = [rows[k] for k in _ROW_KEYS] + [tre_min, tre_max, tre_tris]
+    for k in _ROW_KEYS:
+        req(tuple(rows[k].shape) == (np_, p), f"{name}: rows[{k!r}] shape")
+    for a in f32 + [act_p]:
+        req(a.device == tre_tris.device and a.is_contiguous(),
+            f"{name}: every input must be contiguous on one device")
+    req(all(a.dtype == torch.float32 for a in f32), f"{name}: float32 inputs required")
+    # the kernel copies and reads treelet blocks in 16-byte pieces
+    req(leaf % 4 == 0, f"{name}: the leaf size {leaf} must be a multiple of 4")
+    req(tre_tris.data_ptr() % 16 == 0, f"{name}: tre_tris must be 16-byte aligned")
+    lib = kernels.load()
+    smem = lib.tpupt_treelet_smem_bytes(K, leaf)
+    limit = torch.cuda.get_device_properties(tre_tris.device).shared_memory_per_block_optin
+    req(smem <= limit, f"{name}: {K} treelets need {smem} B of shared memory > {limit}")
+    return lib, np_, K
+
+
+def _ray_ptrs(rows, act_p, tre_min, tre_max, tre_tris):
+    return ([rows[k].data_ptr() for k in _ROW_KEYS]
+            + [a.data_ptr() for a in (act_p, tre_min, tre_max, tre_tris)])
+
+
 def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=False):
     """Closest hit per lane for packed rays (``packets._pack_rows``).
 
@@ -108,44 +191,17 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=F
     if tre_tris.device.type == "cpu":
         return treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf,
                                          payload=payload)
-    req = kernels.require
-    req(tre_tris.is_cuda, f"treelet_closest_hit: unsupported device {tre_tris.device}")
-    np_, p = rows["rox"].shape
-    K = tre_min.shape[0]
-    req(p == PACKET, f"treelet_closest_hit: packets must be {PACKET} wide, got {p}")
-    req(tuple(tre_min.shape) == (K, 3) and tuple(tre_max.shape) == (K, 3),
-        "treelet_closest_hit: tre_min/tre_max must be (K, 3)")
-    req(tuple(tre_tris.shape) == (K, 13 * leaf),
-        f"treelet_closest_hit: tre_tris {tuple(tre_tris.shape)} != ({K}, {13 * leaf})")
-    req(tuple(act_p.shape) == (np_, p) and act_p.dtype == torch.bool,
-        "treelet_closest_hit: act_p must be (np, 256) bool")
-    f32 = [rows[k] for k in _ROW_KEYS] + [tre_min, tre_max, tre_tris]
-    for k in _ROW_KEYS:
-        req(tuple(rows[k].shape) == (np_, p), f"treelet_closest_hit: rows[{k!r}] shape")
-    for a in f32 + [act_p]:
-        req(a.device == tre_tris.device and a.is_contiguous(),
-            "treelet_closest_hit: every input must be contiguous on one device")
-    req(all(a.dtype == torch.float32 for a in f32),
-        "treelet_closest_hit: float32 inputs required")
-    # the kernel copies and reads treelet blocks in 16-byte pieces
-    req(leaf % 4 == 0, f"treelet_closest_hit: the leaf size {leaf} must be a multiple of 4")
-    req(tre_tris.data_ptr() % 16 == 0, "treelet_closest_hit: tre_tris must be 16-byte aligned")
-
-    lib = kernels.load()
-    smem = lib.tpupt_treelet_smem_bytes(K, leaf)
-    limit = torch.cuda.get_device_properties(tre_tris.device).shared_memory_per_block_optin
-    req(smem <= limit,
-        f"treelet_closest_hit: {K} treelets need {smem} B of shared memory > {limit}")
+    lib, np_, K = _checked_launch("treelet_closest_hit", rows, act_p, tre_min, tre_max,
+                                  tre_tris, leaf)
     dev = tre_tris.device
-    out = [torch.empty((np_, p), dtype=dt, device=dev)
+    out = [torch.empty((np_, PACKET), dtype=dt, device=dev)
            for dt in (torch.float32, torch.int32) + (torch.float32,) * 4]
-    pay = torch.empty((9, np_, p), dtype=torch.float32, device=dev) if payload else None
+    pay = torch.empty((9, np_, PACKET), dtype=torch.float32, device=dev) if payload else None
     if np_:
         err = lib.tpupt_treelet_closest_hit(
-            *[rows[k].data_ptr() for k in _ROW_KEYS], act_p.data_ptr(),
-            tre_min.data_ptr(), tre_max.data_ptr(), tre_tris.data_ptr(),
-            np_, K, leaf, *[o.data_ptr() for o in out],
-            pay.data_ptr() if payload else None, kernels.stream_of(tre_tris),
+            *_ray_ptrs(rows, act_p, tre_min, tre_max, tre_tris), np_, K, leaf,
+            *[o.data_ptr() for o in out], pay.data_ptr() if payload else None,
+            kernels.stream_of(tre_tris),
         )
         kernels.check(lib, err, "treelet_closest_hit")
         if payload:
@@ -157,3 +213,27 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=F
 
 treelet_closest_hit.launches = 0
 treelet_closest_hit.payload_launches = 0
+
+
+def treelet_any_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
+    """Occlusion per lane for packed shadow rays (``packets._pack_rows``
+    with the window end as the t cap): (np, 256) bool, True where an active
+    lane hits a triangle at t in [tmin, t].  Inputs as
+    ``treelet_closest_hit``'s.  Launches are counted in
+    ``treelet_any_hit.launches``."""
+    if tre_tris.device.type == "cpu":
+        return treelet_any_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf)
+    lib, np_, K = _checked_launch("treelet_any_hit", rows, act_p, tre_min, tre_max, tre_tris,
+                                  leaf)
+    occ = torch.empty((np_, PACKET), dtype=torch.bool, device=tre_tris.device)
+    if np_:
+        err = lib.tpupt_treelet_any_hit(
+            *_ray_ptrs(rows, act_p, tre_min, tre_max, tre_tris), np_, K, leaf, occ.data_ptr(),
+            kernels.stream_of(tre_tris),
+        )
+        kernels.check(lib, err, "treelet_any_hit")
+        treelet_any_hit.launches += 1
+    return occ
+
+
+treelet_any_hit.launches = 0

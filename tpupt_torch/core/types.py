@@ -114,8 +114,8 @@ class SceneArrays:
 
     @property
     def has_nee(self) -> bool:
-        """Emitters present: the JAX renderer then runs next-event
-        estimation, which this port does not have yet."""
+        """Emitters present: the renderer then runs next-event
+        estimation."""
         return len(self.s_light_objs) > 0 or self.s_tri_light_count > 0
 
     def to(self, device) -> "SceneArrays":

@@ -18,9 +18,17 @@ sweep's payload form outside autograd and recomputes the hit in closed
 form (``intersect.refine_hit``) under it.  The whole graph is kept for the
 backward pass; the sweep never runs in it.
 
+Scenes with emitters run next-event estimation (NEE) with multiple
+importance sampling (MIS): every diffuse hit also samples each sphere
+light (up to ``NEE_UNROLL_MAX``; above, one light per lane) and the
+emissive-mesh triangles, and sends a shadow ray through
+``intersect.occlusion_anyhit``; an emissive surface that a diffuse bounce
+hits gets the balance heuristic's weight.
+
 The JAX package's compaction ladders (forward and differentiable) are
-scheduling only and are left out.  Emitters (next-event estimation) are
-not ported yet and raise ``NotImplementedError``.
+scheduling only and are left out, and so is its closest-hit shadow test
+for its reference intersectors (which the port does not have): the port's
+shadow rays always take the any-hit test, whose sweep is ``any_hit``.
 """
 
 from __future__ import annotations
@@ -29,17 +37,33 @@ import torch
 
 from tpupt_torch.core import camera as cam
 from tpupt_torch.core import vec
-from tpupt_torch.core.types import OBJ_MESH, Camera, RenderBuffers, SceneArrays
+from tpupt_torch.core.types import (
+    MAT_DIFFUSE,
+    OBJ_MESH,
+    PRIM_SPHERE,
+    PRIM_TRIANGLE,
+    Camera,
+    RenderBuffers,
+    SceneArrays,
+    table_rows,
+)
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.render.intersect import (
     background_color,
     intersect_scene_ids,
     intersect_scene_ids_diff,
+    occlusion_anyhit,
     refine_hit,
     slot_tri_table,
 )
-from tpupt_torch.render.materials import russian_roulette, shade
-from tpupt_torch.sampling.rng import jitter_counters, pixel_seed, uniform
+from tpupt_torch.render.materials import (
+    INV_PI,
+    _material_rows,
+    russian_roulette,
+    sample_light_sphere,
+    shade,
+)
+from tpupt_torch.sampling.rng import bounce_counter, jitter_counters, pixel_seed, uniform
 from tpupt_torch.scene.bake import rebake_treelets
 
 MAX_BOUNCES_DEFAULT = 50  # reference max_bounces
@@ -66,23 +90,211 @@ def _fresh_state(scene, camera, width, height, pix, iteration):
         normal=-rd,
         depth=torch.full_like(zf, 1e6),
     )
+    if scene.has_nee:
+        # the last scatter was specular (or there was none): an emitter hit
+        # next takes full weight; after a diffuse scatter it takes the MIS
+        # weight of pdf_w, the solid-angle pdf of that scatter (0 = delta).
+        # Only NEE's emission weight reads them.
+        state.update(spec=torch.ones_like(zf, dtype=torch.bool), pdf_w=zf)
     return state, seed
 
 
-def _weighted_emission(radiance, state, emitted, hit_alive):
-    """Add the hit surface's emission.  Without next-event estimation
-    (the only case ported) its weight is 1."""
-    return vec.where(hit_alive, radiance + state["color"] * emitted, radiance)
+# Up to this many sphere lights, every diffuse hit samples each of them
+# (one shadow test per light); above it, each lane samples one light chosen
+# uniformly and weights it by the light count.
+NEE_UNROLL_MAX = 4
+_TWO_PI = 6.283185307179586
+
+
+def _zero3(like):
+    z = torch.zeros_like(like)
+    return Vec3(z, z, z)
+
+
+def _light_emission(scene, li: int) -> Vec3:
+    """Emission of sphere light ``li``, read from ``materials.emission`` so
+    that its gradient covers the NEE term."""
+    return Vec3(*scene.materials.emission[scene.s_light_mats[li]].unbind())
+
+
+def _cone_pdf(ro, center, radius, selection):
+    """(ro outside the sphere, the cone-sampling pdf of the sphere seen
+    from ro times ``selection``), as ``sample_light_sphere`` samples it."""
+    oc = ro - center
+    d2 = oc.dot(oc)
+    sin2 = torch.clamp(radius * radius / torch.clamp(d2, min=1e-12), 0.0, 1.0)
+    cos_max = torch.sqrt(torch.clamp(1.0 - sin2, min=0.0))
+    return d2 > radius * radius, torch.div(selection, torch.clamp(_TWO_PI * (1.0 - cos_max),
+                                                                    min=1e-12))
+
+
+def _light_pdf_at_hit(scene, obj_id, kind, hit, ro, rd, absorb):
+    """Solid-angle pdf with which NEE would have sampled this emitter hit
+    from ``ro``: the light side of the balance heuristic for an emitter
+    that a bounce hit.  Sphere lights: the cone pdf (times 1/nl when one
+    light is sampled per lane); emissive triangles: t^2 / (cos_l * total
+    area).  0 where NEE could not have sampled the hit (the weight is 1
+    there)."""
+    pl = torch.zeros_like(hit.t)
+    nl = len(scene.s_light_objs)
+    if nl > NEE_UNROLL_MAX:
+        objs = torch.tensor(scene.s_light_objs, device=obj_id.device)
+        match = obj_id[:, None] == objs[None, :]  # (N, nl)
+        table = torch.cat([scene.nee_center, scene.nee_radius[:, None]], dim=1)
+        rows = table_rows(table, match.to(torch.int64).argmax(dim=1))
+        outside, pdf = _cone_pdf(ro, Vec3(*rows[:, :3].unbind(1)), rows[:, 3],
+                                 pl.new_tensor(1.0 / nl))
+        pl = torch.where(match.any(dim=1) & (kind == PRIM_SPHERE) & outside, pdf, pl)
+    else:
+        for li, lo in enumerate(scene.s_light_objs):
+            outside, pdf = _cone_pdf(ro, Vec3(*scene.nee_center[li].unbind()),
+                                     scene.nee_radius[li], pl.new_tensor(1.0))
+            pl = torch.where((obj_id == lo) & (kind == PRIM_SPHERE) & outside, pdf, pl)
+    if scene.s_tri_light_count > 0:
+        # hit.normal faces against the unit ray, so cos_l = -(rd . n); t is
+        # BIG where nothing was hit and is zeroed off the taken lanes, which
+        # keeps t * t and the backward of the quotient finite
+        take = absorb & (kind == PRIM_TRIANGLE)
+        t = torch.where(take, hit.t, 0.0)
+        cos_l = torch.clamp(-rd.dot(hit.normal), min=1e-6)
+        p_tri = t * t / (cos_l * torch.clamp(scene.tri_light_area, min=1e-30))
+        pl = torch.where(take, p_tri, pl)
+    return pl
+
+
+def _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_alive):
+    """Add the hit surface's emission.  Without emitters to sample its
+    weight is 1; with NEE, 1 after a specular scatter (NEE cannot sample
+    a delta lobe) and the balance heuristic pdf_w / (pdf_w + pdf_light)
+    after a diffuse one (the NEE terms carry the complement)."""
+    if not scene.has_nee:
+        return vec.where(hit_alive, radiance + state["color"] * emitted, radiance)
+    pl = _light_pdf_at_hit(scene, ids.obj_id, ids.kind, hit, state["ro"], state["rd"], absorb)
+    pb, spec = state["pdf_w"], state["spec"]
+    # the denominator is 1 on specular lanes too, so that its backward
+    # never divides by 1e-20 squared
+    w = torch.where(spec, 1.0, pb / torch.where(spec, 1.0, torch.clamp(pb + pl, min=1e-20)))
+    return vec.where(hit_alive & absorb, radiance + state["color"] * emitted * w, radiance)
+
+
+@torch.no_grad()
+def _shadow_lit(scene, p, direction, center, radius, shadow_active, lo, any_hit):
+    """Shadow test toward a point sampled on a sphere light: any-hit
+    occlusion of the window [1e-4, distance to the light along the unit
+    direction], with the light itself (object ``lo``: an int, or per lane)
+    excluded."""
+    oc = p - center
+    b = direction.dot(oc)
+    disc = torch.clamp(b * b - (oc.dot(oc) - radius * radius), min=0.0)
+    t_light = -b - torch.sqrt(disc)
+    occ = occlusion_anyhit(scene, p, direction, torch.full_like(b, 1e-4), t_light, shadow_active,
+                           lo, any_hit)
+    return shadow_active & ~occ
+
+
+def _nee_direct_light(scene, hit, throughput, seed, bounce, alive, any_hit):
+    """Next-event estimation from every diffuse hit: the emissive-mesh
+    term (``_nee_mesh_light``) plus, for sphere lights, one MIS-weighted
+    sample of each (up to ``NEE_UNROLL_MAX``) or of one light per lane
+    (``_nee_sampled_light``)."""
+    mtype, albedo, *_ = _material_rows(scene, hit.mat_id)
+    n = hit.normal
+    diffuse = alive & hit.mask & (mtype == MAT_DIFFUSE)
+    p = hit.point + n * 1e-4  # the scatter's offset
+    total = (
+        _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit)
+        if scene.s_tri_light_count > 0
+        else _zero3(hit.t)
+    )
+    if len(scene.s_light_objs) > NEE_UNROLL_MAX:
+        return total + _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce,
+                                          any_hit)
+    for li, lo in enumerate(scene.s_light_objs):
+        center = Vec3(*scene.nee_center[li].unbind())
+        radius = scene.nee_radius[li]
+        u1 = uniform(seed, bounce_counter(bounce, 4 + 2 * li))
+        u2 = uniform(seed, bounce_counter(bounce, 5 + 2 * li))
+        direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
+        lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo, any_hit)
+        # lambertian f = albedo / pi; with the balance heuristic
+        # f * w / pdf = f / (pdf_light + pdf_bsdf)
+        p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
+        contrib = throughput * albedo * (p_b / (pdf + p_b))
+        total = vec.where(lit, total + contrib * _light_emission(scene, li), total)
+    return total
+
+
+def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit):
+    """One sphere light per lane, chosen uniformly, its contribution
+    weighted by the light count.  The lane's light row [centre, radius,
+    emission, object] comes from one ``table_rows`` fetch of an (nl, 8)
+    table whose emission columns are rows of ``materials.emission``."""
+    nl = len(scene.s_light_objs)
+    dev = p.x.device
+    li = torch.clamp((uniform(seed, bounce_counter(bounce, 4)) * nl).long(), max=nl - 1)
+    emis = scene.materials.emission[torch.tensor(scene.s_light_mats, device=dev)]
+    objs = torch.tensor(scene.s_light_objs, dtype=torch.float32, device=dev)
+    table = torch.cat([scene.nee_center, scene.nee_radius[:, None], emis, objs[:, None]], dim=1)
+    rows = table_rows(table, li)  # (N, 8)
+    center, radius = Vec3(*rows[:, 0:3].unbind(1)), rows[:, 3]
+    emit, lo_lane = Vec3(*rows[:, 4:7].unbind(1)), rows[:, 7].long()
+
+    u1 = uniform(seed, bounce_counter(bounce, 5))
+    u2 = uniform(seed, bounce_counter(bounce, 6))
+    direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
+    lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo_lane, any_hit)
+    # the technique's pdf is pdf / nl: f * w / (pdf / nl) = f * nl / (pdf + nl * pdf_bsdf)
+    p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
+    scale = p_b * float(nl) / (pdf + float(nl) * p_b)
+    return vec.where(lit, throughput * albedo * scale * emit, _zero3(p_b))
+
+
+def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit):
+    """One point per lane on the emissive-mesh triangles: a triangle
+    chosen by area (the CDF inverted by a dense compare-count over the
+    <= 512 light triangles), a uniform barycentric point, the lights
+    two-sided.  The emission is read from ``materials.emission`` by the
+    triangle's material."""
+    u_sel = uniform(seed, bounce_counter(bounce, 12))
+    u1 = uniform(seed, bounce_counter(bounce, 13))
+    u2 = uniform(seed, bounce_counter(bounce, 14))
+    cum = scene.tri_light_cum  # (Lt,), the last entry 1
+    idx = torch.clamp((u_sel[:, None] >= cum[None, :]).sum(dim=1), max=cum.shape[0] - 1)
+    rows = table_rows(scene.tri_light_pack, idx)  # (N, 11)
+    p0, e1, e2 = (Vec3(*rows[:, k:k + 3].unbind(1)) for k in (0, 3, 6))
+    lmat = rows[:, 10].long()
+
+    su = torch.sqrt(u1)
+    x = p0 + e1 * (1.0 - su) + e2 * (u2 * su)
+    d = x - p
+    dist2 = torch.clamp(d.dot(d), min=1e-12)
+    dist = torch.sqrt(dist2)
+    direction = d * (1.0 / dist)
+    nlv = e1.cross(e2)
+    cos_l = direction.dot(nlv).abs() * torch.rsqrt(torch.clamp(nlv.dot(nlv), min=1e-30))
+    valid = diffuse & (cos_l > 1e-6)
+    # the window stops short of the sampled triangle, which must not
+    # occlude itself; no sphere is this light
+    occ = occlusion_anyhit(scene, p, direction, torch.full_like(dist, 1e-4), dist * (1.0 - 1e-3),
+                           valid, -1, any_hit)
+    # f * w / pdf_tech with pdf_tech = dist^2 / (cos_l * A), multiplied
+    # through by cos_l * A so that a grazing light divides by nothing small
+    p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
+    cla = cos_l * scene.tri_light_area
+    scale = p_b * cla / (dist2 + p_b * cla)
+    emit = Vec3(*table_rows(scene.materials.emission, lmat).unbind(1))
+    return vec.where(valid & ~occ, throughput * albedo * scale * emit, _zero3(p_b))
 
 
 def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=False,
-                 tri_table=None):
+                 tri_table=None, any_hit=None):
     """One bounce over all lanes; ``bounce`` is per lane or one int.
 
     ``use_refine``: ``intersect_fn`` is an ids pass that returns (ids,
     tri_vals) (``intersect_scene_ids_diff``), and the hit is recomputed
     differentiably by ``refine_hit``, with ``tri_table`` as the slot table
-    of the triangle rows."""
+    of the triangle rows.  ``any_hit`` is the shadow rays' mesh sweep
+    (``packets.intersect_treelets_anyhit``)."""
     alive = state["alive"]
     if use_refine:
         ids, tri_vals = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
@@ -90,7 +302,7 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
             tri_vals = dict(tri_vals, table=tri_table)
         hit = refine_hit(scene, state["ro"], state["rd"], state["t_min"], ids, tri_vals)
     else:
-        _ids, hit = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+        ids, hit = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
     hit_alive = alive & hit.mask
     miss = alive & ~hit.mask
 
@@ -105,10 +317,13 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
     normal = vec.where(first & hit.mask, hit.normal, state["normal"])
     depth = torch.where(first & hit.mask, hit.t, state["depth"])
 
-    new_ro, new_rd, new_t_min, new_color, emitted, absorb, _spec, _pdf = shade(
+    new_ro, new_rd, new_t_min, new_color, emitted, absorb, specular, new_pdf = shade(
         scene, hit, state["ro"], state["rd"], state["t_min"], state["color"], seed, bounce
     )
-    radiance = _weighted_emission(radiance, state, emitted, hit_alive)
+    radiance = _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_alive)
+    if scene.has_nee:
+        radiance = radiance + _nee_direct_light(scene, hit, state["color"], seed, bounce, alive,
+                                                any_hit)
     out = dict(
         ro=vec.where(hit_alive, new_ro, state["ro"]),
         rd=vec.where(hit_alive, new_rd, state["rd"]),
@@ -119,6 +334,9 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
         normal=normal,
         depth=depth,
     )
+    if scene.has_nee:
+        out.update(spec=torch.where(hit_alive, specular, state["spec"]),
+                   pdf_w=torch.where(hit_alive, new_pdf, state["pdf_w"]))
     if rr_start is not None:
         # survivors divide throughput by the survival probability; killed
         # lanes keep the radiance collected so far
@@ -148,7 +366,7 @@ def accumulate(buffers: RenderBuffers, color, normal, depth) -> RenderBuffers:
 
 
 def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                    start_iteration, intersect_fn):
+                    start_iteration, intersect_fn, any_hit=None):
     """Forward render with per-lane sample chaining, one flat loop."""
     dev = scene.device
     n = width * height
@@ -166,7 +384,7 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
     for _ in range(spp * max_bounces):  # every lane is done by this bound
         if not bool((~done).any()):
             break
-        st2 = _bounce_body(scene, seed, st, bounce, rr_start, intersect_fn)
+        st2 = _bounce_body(scene, seed, st, bounce, rr_start, intersect_fn, any_hit=any_hit)
         segs = segs + st["alive"].long()
         b2 = bounce + 1
         capped = st2["alive"] & (b2 >= max_bounces)
@@ -216,15 +434,16 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
 
 
 def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=None,
-                 intersect_fn=intersect_scene_ids_diff):
+                 intersect_fn=intersect_scene_ids_diff, any_hit=None):
     """One differentiable sample per pixel.  Returns (color (N, 3), normal
     (N, 3), depth (N,), traced segments as a 0-dim int64 tensor), all but
     the count differentiable in the scene's float leaves.
 
     The treelet table is rebaked from ``scene.positions`` first, so the
     traced geometry is that of the parameters and the sweep's payload
-    copies the rows of the slot table built here once.  The bounce loop
-    stops early once no lane is alive: a dead lane changes nothing."""
+    copies the rows of the slot table built here once; NEE's shadow rays
+    trace the same table.  The bounce loop stops early once no lane is
+    alive: a dead lane changes nothing."""
     tri_table = None
     if any(k == OBJ_MESH for k in scene.s_obj_kind):
         scene = rebake_treelets(scene)
@@ -237,14 +456,14 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=
             break
         rays = rays + state["alive"].sum()
         state = _bounce_body(scene, seed, state, b, rr_start, intersect_fn, use_refine=True,
-                             tri_table=tri_table)
+                             tri_table=tri_table, any_hit=any_hit)
     # paths alive at the bounce cap add their raw throughput
     final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
     return final.to_array(), state["normal"].to_array(), state["depth"], rays
 
 
 def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                    start_iteration, intersect_fn):
+                    start_iteration, intersect_fn, any_hit=None):
     """The differentiable render: ``spp`` samples, each a ``trace_sample``,
     folded by ``accumulate``."""
     n = width * height
@@ -254,7 +473,7 @@ def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for it in range(start_iteration, start_iteration + spp):
         color, normal, depth, r = trace_sample(scene, camera, width, height, it, max_bounces,
-                                               rr_start, intersect_fn)
+                                               rr_start, intersect_fn, any_hit)
         buffers = accumulate(buffers, color, normal, depth)
         rays = rays + r
     return buffers, rays
@@ -273,6 +492,7 @@ def render_image(
     intersect_fn=None,
     chain_samples: bool = True,
     device=None,
+    any_hit=None,
 ):
     """Render ``spp`` progressive samples on ``device`` (default: the
     scene's).  Returns (RenderBuffers, total traced segments as a 0-dim
@@ -284,19 +504,17 @@ def render_image(
     ``torch.no_grad()``.  ``intersect_fn`` is the hit pass: by default
     ``intersect_scene_ids`` forward and ``intersect_scene_ids_diff`` when
     differentiable (the twin: either with ``closest_hit=
-    sweep_kernel.treelet_closest_hit_plain`` bound)."""
+    sweep_kernel.treelet_closest_hit_plain`` bound).  ``any_hit`` is the
+    mesh sweep of NEE's shadow rays, ``sweep_kernel.treelet_any_hit`` by
+    default (the twin: ``treelet_any_hit_plain``)."""
     if not chain_samples and not differentiable:
         raise NotImplementedError("only the sample-chained forward loop is ported")
-    if scene.has_nee:
-        raise NotImplementedError(
-            "scenes with emitters need next-event estimation, not ported yet"
-        )
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
     if differentiable:
         return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, intersect_fn or intersect_scene_ids_diff)
+                               start_iteration, intersect_fn or intersect_scene_ids_diff, any_hit)
     with torch.no_grad():
         return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, intersect_fn or intersect_scene_ids)
+                               start_iteration, intersect_fn or intersect_scene_ids, any_hit)

@@ -1,5 +1,5 @@
-"""Scene-level closest-hit intersection (counterpart of
-``tpupt/render/intersect.py``).
+"""Scene-level intersection (counterpart of ``tpupt/render/intersect.py``):
+the closest hit, and the shadow rays' occlusion test (``occlusion_anyhit``).
 
 Spheres: an unrolled scan over the sphere objects (the reference's object
 loop; a later equal-t hit overwrites an earlier one).  Meshes: the packet
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from tpupt_torch.accel.packets import _DIFF_KEYS, intersect_treelets
+from tpupt_torch.accel.packets import _DIFF_KEYS, intersect_treelets, intersect_treelets_anyhit
 from tpupt_torch.core import vec
 from tpupt_torch.core.types import (
     Hit,
@@ -47,14 +47,12 @@ from tpupt_torch.scene.bake import world_slot_tris
 BIG_T = 3.0e38
 
 
-def _sphere_candidate(scene, o: int, prim: int, ro: Vec3, rd: Vec3, t_min, t_bound):
-    """Object-space quadratic sphere test with the reference's semantics:
-    the ray goes to object space with a normalized direction, the t window
-    is checked in object units, and the winning t is re-measured in world
-    units as |world point - origin|.  Returns (hit, t_w, world point, world
-    normal, front)."""
+def _sphere_roots(scene, o: int, prim: int, ro: Vec3, rd: Vec3, t_min, t_bound):
+    """The object-space quadratic of sphere object ``o``: the ray goes to
+    object space with a normalized direction and the t window is checked in
+    object units.  Returns (hit, t_obj, object-space origin, direction,
+    centre, radius)."""
     inv_m = scene.obj_inv_m[o]
-    m = scene.obj_m[o]
     center = Vec3(*scene.sphere_center[prim].unbind())
     radius = scene.sphere_radius[prim]
 
@@ -70,17 +68,24 @@ def _sphere_candidate(scene, o: int, prim: int, ro: Vec3, rd: Vec3, t_min, t_bou
     t2 = (-b + sq) / (2.0 * a)
     use1 = (t1 >= t_min) & (t1 <= t_bound)
     use2 = (t2 >= t_min) & (t2 <= t_bound)
-    t_obj = torch.where(use1, t1, t2)
     hit = (disc >= 0.0) & (use1 | use2)
+    return hit, torch.where(use1, t1, t2), oo, od, center, radius
 
+
+def _sphere_candidate(scene, o: int, prim: int, ro: Vec3, rd: Vec3, t_min, t_bound):
+    """Object-space quadratic sphere test with the reference's semantics
+    (``_sphere_roots``); the winning t is re-measured in world units as
+    |world point - origin|.  Returns (hit, t_w, world point, world normal,
+    front)."""
+    hit, t_obj, oo, od, center, radius = _sphere_roots(scene, o, prim, ro, rd, t_min, t_bound)
     point_obj = oo + od * t_obj
-    point_w = vec.transform_point(m, point_obj)
+    point_w = vec.transform_point(scene.obj_m[o], point_obj)
     t_w = (point_w - ro).length()
 
     outward = (point_obj - center) * (1.0 / radius)
     front = od.dot(outward) < 0.0
     normal_obj = vec.where(front, outward, -outward)
-    normal_w = vec.transform_normal(inv_m, normal_obj)
+    normal_w = vec.transform_normal(scene.obj_inv_m[o], normal_obj)
     return hit, t_w, point_w, normal_w, front
 
 
@@ -201,6 +206,32 @@ def intersect_scene_ids_diff(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, acti
         obj_id = torch.where(take, torch.clamp(ex["obj"].long(), min=0), obj_id)
         tri_vals = {"slot": slot, **{k: ex[k] for k in _DIFF_KEYS}}
     return HitIds(kind=kind, obj_id=obj_id, prim_id=prim_id, t=t_best), tri_vals
+
+
+@torch.no_grad()
+def occlusion_anyhit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, active,
+                     exclude_obj, any_hit=None):
+    """The shadow test: True where some geometry other than sphere object
+    ``exclude_obj`` (the sampled light) hits an active lane's ray at t in
+    [t_min, t_limit].
+
+    ``exclude_obj`` is an int, the same light for every lane (its sphere
+    test is skipped), or a per-lane tensor (the test runs and is masked
+    per lane); -1 excludes nothing.  Spheres run the closest-hit pass's
+    quadratic against the window; meshes run the any-hit sweep
+    (``packets.intersect_treelets_anyhit``, with ``any_hit`` as there) on
+    the lanes no sphere occludes.  Nothing here is seen by autograd."""
+    static_ex = isinstance(exclude_obj, int)
+    occ = torch.zeros_like(active)
+    for o, (okind, oprim) in enumerate(zip(scene.s_obj_kind, scene.s_obj_prim)):
+        if okind != OBJ_SPHERE or (static_ex and o == exclude_obj):
+            continue
+        take = active & _sphere_roots(scene, o, oprim, ro, rd, t_min, t_limit)[0]
+        occ = occ | (take if static_ex else take & (exclude_obj != o))
+    if _has_mesh(scene):
+        occ = occ | intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active & ~occ,
+                                              any_hit=any_hit)
+    return occ
 
 
 def slot_tri_table(scene: SceneArrays) -> torch.Tensor:

@@ -9,7 +9,8 @@ All three lobes run for every lane and the material tag selects:
   * dielectric: Schlick + stochastic reflect/refract of the normalized
     incident direction, from the un-offset hit point with t_min = 1e-5
   * russian roulette: survive with p = clamp(max throughput channel),
-    dividing by p.
+    dividing by p;
+  * next-event estimation's sphere-light sampling (``sample_light_sphere``).
 """
 
 from __future__ import annotations
@@ -114,6 +115,32 @@ def shade(scene: SceneArrays, hit: Hit, ro: Vec3, rd: Vec3, t_min, throughput: V
     pdf_w = torch.where(is_diff, torch.clamp(d_diff.dot(n), min=0.0) * INV_PI, 0.0)
     return (new_ro, new_rd, new_t_min, new_throughput, emitted, is_emis,
             specular, pdf_w)
+
+
+def sample_light_sphere(center: Vec3, radius, p: Vec3, u1, u2):
+    """Cone sampling of a sphere light as seen from ``p``: uniform over the
+    solid angle it subtends, in a Frisvad frame around the axis.  Returns
+    (direction Vec3, pdf 1/sr, valid: ``p`` lies outside the sphere)."""
+    d = center - p
+    dist2 = d.dot(d)
+    valid = dist2 > radius * radius
+    w = d * torch.rsqrt(torch.clamp(dist2, min=1e-12))
+    sin2_max = torch.clamp(radius * radius / torch.clamp(dist2, min=1e-12), 0.0, 1.0)
+    cos_max = torch.sqrt(torch.clamp(1.0 - sin2_max, min=0.0))
+
+    cos_t = 1.0 + u1 * (cos_max - 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 6.283185307179586 * u2
+
+    sign = torch.where(w.z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + w.z)
+    b = w.x * w.y * a
+    t1 = Vec3(1.0 + sign * w.x * w.x * a, sign * b, -sign * w.x)
+    t2 = Vec3(b, sign + w.y * w.y * a, -w.y)
+
+    direction = w * cos_t + t1 * (sin_t * torch.cos(phi)) + t2 * (sin_t * torch.sin(phi))
+    pdf = 1.0 / torch.clamp(6.283185307179586 * (1.0 - cos_max), min=1e-8)
+    return direction, pdf, valid
 
 
 def russian_roulette(throughput: Vec3, alive, seed, bounce):
