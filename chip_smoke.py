@@ -7,7 +7,12 @@ at 256^2 and runs the denoiser's backward pass.  Then next-event
 estimation: the any-hit shadow kernel against its twin (and both forms of
 the closest-hit kernel on the area-light scene's own rays), the two Cornell
 scenes rendered at BASELINE config 2's size (held against the twins at
-128^2), and a fwd+bwd step on the area-light Cornell box.
+128^2), and a fwd+bwd step on the area-light Cornell box.  Then the user's
+surfaces: the progressive engine (``PathTracer``) on the bunny render, its
+streaming mode bit-equal to the megakernel and the sweep on a compacted
+wavefront bounce; the CLI in subprocesses at the scenes' own settings,
+with the sweep held against its twin on the rows of the same 1920x1080
+renders (chained trips, a compacted bounce); the headless viewer.
 
     python chip_smoke.py
 
@@ -19,16 +24,19 @@ it fails before printing any result.  Its standard output ends with:
     its launches on its main path (the forward render; the fwd+bwd step
     for the payload form; the cornell_area render for the any-hit kernel),
     its measured error and times, and its bound (the work its inputs need
-    at the card's published peaks),
+    at the card's published peaks), and its launches in each CLI render,
   * {"ok": true, "device": {...}} as the last line.
 """
 
 import functools
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -44,11 +52,14 @@ from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noq
 from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
 from tpupt_torch.core.vec import Vec3  # noqa: E402
 from tpupt_torch.diff.params import MATERIAL_LEAVES, PARAM_LEAVES  # noqa: E402
-from tpupt_torch.render import integrator, intersect  # noqa: E402
+from tpupt_torch.interactive.camera_controller import FirstPersonCameraController  # noqa: E402
+from tpupt_torch.interactive.viewer import InteractiveViewer  # noqa: E402
+from tpupt_torch.render import integrator, intersect, wavefront  # noqa: E402
 from tpupt_torch.render.materials import shade  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
+from tpupt_torch.utils.image import to_uint8  # noqa: E402
 
 DEV = torch.device("cuda")
 SIZE, SPP, MAX_BOUNCES, RR = 1024, 16, 50, 8  # the main path's render
@@ -206,10 +217,12 @@ def pack(ro, rd, t_min, active):
     return packets._pack_rows(ro, rd, t_min, sphere_seed(ro, rd, t_min, active), active)
 
 
-def compare_sweep(label, scn, rows, act_p):
+def compare_sweep(label, scn, rows, act_p, same_rays=None):
     """The kernel against its twin on one packed batch of ``scn``'s table,
     all six outputs exact; the work the twin's loop counts, the bound and
-    the times."""
+    the times.  ``same_rays`` is this function's result on the same rays in
+    another packing: the rays need no more work than the lesser of the two
+    counts, so the bound takes that one."""
     k3, l3 = scn.tre_min.shape[0], scn.s_leaf_size
     args = (rows, act_p, scn.tre_min, scn.tre_max, scn.tre_tris, l3)
     out_k = sweep_kernel.treelet_closest_hit(*args)
@@ -222,21 +235,26 @@ def compare_sweep(label, scn, rows, act_p):
     ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit(*args), 20)
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args), 2)
     lanes = act_p.numel()
-    flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
-    # each input read once (8 f32 rows + act per lane, boxes and blocks per
-    # treelet), each of the 6 outputs written once
-    nbytes = lanes * (8 * 4 + 1 + 6 * 4) + k3 * (6 + 13 * l3) * 4
+    packed_flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
+    flops = packed_flops if same_rays is None else min(packed_flops, same_rays["gflop"] * 1e9)
+    # each input read once (act per lane, 8 f32 rows per live lane: an
+    # inactive lane's rows need no read; boxes and blocks per treelet), each
+    # of the 6 outputs written once
+    nbytes = lanes * (1 + 6 * 4) + work["live_lanes"] * 8 * 4 + k3 * (6 + 13 * l3) * 4
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"{label}: K={k3}; {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
           f"{int(hit.sum())} mesh hits; all 6 outputs equal to the twin")
     print(f"  work: {work['supers_hit']} supers hit, {work['slab_tests']} slab tests, "
           f"{work['visits']} treelet visits (at most {work['visits_max']} in a packet), "
-          f"{work['mt_pairs']} MT pairs = {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB")
+          f"{work['mt_pairs']} MT pairs = {packed_flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.1f} MB"
+          + ("" if flops == packed_flops else
+             f"; the bound counts the other packing's {flops / 1e9:.4f} GFLOP"))
     print(f"  kernel {ms:.4f} ms, twin {plain_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}, {PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
           f"{bound_ms / ms:.1%} of it")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err, hits=int(hit.sum()), work=work, gflop=flops / 1e9, treelets=k3)
+                max_abs_err=err, hits=int(hit.sum()), work=work, gflop=flops / 1e9,
+                packed_gflop=packed_flops / 1e9, share_of_bound=bound_ms / ms, treelets=k3)
 
 
 def call_ms(ro, rd, t_min, active):
@@ -297,7 +315,7 @@ def compare_payload(label, scn_r, rows, act_p):
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args, payload=True), 2)
     lanes = act_p.numel()
     flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
-    nbytes = lanes * (8 * 4 + 1 + 6 * 4 + 9 * 4) + k3 * (6 + 13 * l3) * 4
+    nbytes = lanes * (1 + 6 * 4 + 9 * 4) + work["live_lanes"] * 8 * 4 + k3 * (6 + 13 * l3) * 4
     bound_ms, bound_by = bound(flops, nbytes)
     ms = sum(pay_ms) / 2
     print(f"{label}: K={k3}; {int(hit.sum())} mesh hits; all 15 outputs equal to the twin, the "
@@ -328,9 +346,7 @@ def reset_counts():
 
 
 def read_counts():
-    out = {w.__name__: w.launches for w in counted}
-    out["treelet_closest_hit(payload=True)"] = sweep_kernel.treelet_closest_hit.payload_launches
-    return out
+    return dict(sweep_kernel.launch_counts(), winner_step=step_kernel.winner_step.launches)
 
 
 reset_counts()
@@ -568,9 +584,9 @@ def compare_any_hit(label, scn, rows, act_p):
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_any_hit_plain(*args), 2)
     lanes = act_p.numel()
     flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
-    # each input read once (8 f32 rows + act per lane, boxes and blocks per
-    # treelet), one byte written per lane
-    nbytes = lanes * (8 * 4 + 1 + 1) + k9 * (6 + 13 * l9) * 4
+    # each input read once (act per lane, 8 f32 rows per live lane, boxes
+    # and blocks per treelet), one byte written per lane
+    nbytes = lanes * (1 + 1) + work["live_lanes"] * 8 * 4 + k9 * (6 + 13 * l9) * 4
     bound_ms, bound_by = bound(flops, nbytes)
     occluded = int(out_k.sum())
     print(f"{label}: K={k9}; {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
@@ -787,6 +803,282 @@ for k in LEAVES:
 print(f"gradient parity at 128^2, 1 spp, kernels vs twins: {rk3} segments each; loss {float(lk):.7g} "
       f"vs {float(lp):.7g}; largest gap {max(a_gap.values()):.3g} of its leaf's max |grad|")
 
+# --- 12 ------------------------------------------------------------------
+phase(f"12 PathTracer on bunny.json: {SIZE}^2, {MAX_BOUNCES} bounces, rr {RR} (phase 4's render)")
+
+
+def fresh_tracer(method="megakernel", size=SIZE):
+    return tpupt_torch.PathTracer(scene, (size, size), max_bounces=MAX_BOUNCES, rr_start=RR,
+                                  method=method)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# one chunk of SPP: the chained render of phase 4, merged into zeroed buffers
+tracer = fresh_tracer()
+reset_counts()
+pt_rays, pt_wall = timed(lambda: tracer.path_trace_many(desc.camera, SPP))
+pt_launches = read_counts()
+assert (pt_launches["treelet_closest_hit"], pt_rays) == (FWD_LAUNCHES, FWD_SEGMENTS), \
+    f"path_trace_many({SPP}) moved the counts: {pt_launches}, {pt_rays}"
+assert tracer.iteration == SPP and torch.equal(tracer.buffers.color, img), \
+    "path_trace_many's image differs from phase 4's"
+print(f"path_trace_many({SPP}): {pt_rays} segments, launches {pt_launches}, {pt_wall:.3f} s = "
+      f"{pt_rays / pt_wall / 1e6:.3f} Mrays/s; image equal to phase 4's")
+# chunks of SPP/2 + SPP/2: the same segments, the image at the chunk merge's
+# tolerance (tests/test_progressive.py: atol 2e-4)
+chunked = fresh_tracer()
+half = [chunked.path_trace_many(desc.camera, SPP // 2) for _ in range(2)]
+assert sum(half) == FWD_SEGMENTS, half
+chunk_gap = float((chunked.buffers.color - img).abs().max())
+assert torch.allclose(chunked.buffers.color, img, atol=2e-4), chunk_gap
+print(f"chunks of {SPP // 2} + {SPP // 2}: {half} segments, max |image - phase 4's| {chunk_gap:.3g}")
+# a checkpoint of the chunked tracer, loaded into a new one, continues as
+# the uninterrupted tracer
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt = os.path.join(tmp, "ckpt.npz")
+    chunked.save_checkpoint(ckpt)
+    resumed = fresh_tracer()
+    resumed.load_checkpoint(ckpt)
+assert resumed.iteration == SPP and torch.equal(resumed.buffers.color, chunked.buffers.color)
+assert chunked.path_trace(desc.camera) == resumed.path_trace(desc.camera)
+for key in ("color", "normal", "depth"):
+    assert torch.equal(getattr(resumed.buffers, key), getattr(chunked.buffers, key)), key
+print(f"checkpoint at iteration {SPP}: saved, loaded, one more sample equal to the uninterrupted "
+      f"tracer's")
+# per-sample steps in each mode, in turns (the first of a pair alternates):
+# bit-equal, the same segments; the streaming/megakernel wall ratio of
+# each pair
+MODE_PAIRS = 10
+mega, stream = fresh_tracer(), fresh_tracer("streaming")
+mode_walls = {"megakernel": [], "streaming": []}
+for i in range(MODE_PAIRS):
+    pair_rays = {}
+    for mode, pt_mode in ((("megakernel", mega), ("streaming", stream)) if i % 2 == 0 else
+                          (("streaming", stream), ("megakernel", mega))):
+        pair_rays[mode], w_mode = timed(lambda: pt_mode.path_trace(desc.camera))
+        mode_walls[mode].append(w_mode)
+    assert pair_rays["megakernel"] == pair_rays["streaming"], pair_rays
+for key in ("color", "normal", "depth"):
+    a, b = getattr(mega.buffers, key), getattr(stream.buffers, key)
+    if not torch.equal(a, b):
+        bad = (a != b).reshape(a.shape[0], -1).any(dim=1).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"streaming != megakernel in {key}, first pixels {bad}")
+mode_ratios = sorted(s / m for s, m in zip(mode_walls["streaming"], mode_walls["megakernel"]))
+print(f"path_trace x{MODE_PAIRS}, megakernel and streaming in turns: bit-equal, "
+      f"{pair_rays['megakernel']} segments in the last sample; streaming/megakernel wall "
+      f"per pair: median {mode_ratios[MODE_PAIRS // 2 - 1]:.3f}-{mode_ratios[MODE_PAIRS // 2]:.3f}, range "
+      f"{mode_ratios[0]:.3f}-{mode_ratios[-1]:.3f}; walls {mode_walls}")
+
+
+# the sweep on a compacted wavefront bounce: bounce 2 of a streaming sample
+# traces only its live lanes, contiguous at the front of the packets; the
+# megakernel's bounce 2 hands the sweep the same lanes in pixel order
+def bounce2_rows(sample, width, height, rr_start):
+    rows = []
+
+    def record(*args, **kw):
+        record.calls += 1
+        if record.calls == 3:
+            rows.append(args)
+        return sweep_kernel.treelet_closest_hit(*args, **kw)
+
+    record.calls = 0
+    sample(scene, desc.camera.to(DEV), width, height, 0, max_bounces=MAX_BOUNCES,
+           rr_start=rr_start,
+           intersect_fn=functools.partial(intersect.intersect_scene_ids, closest_hit=record))
+    assert len(rows) == 1, record.calls
+    return rows[0][:2]
+
+
+def compare_bounce2(label, width, height, rr_start):
+    """The sweep on bounce 2 of one sample, compacted (streaming) and in
+    pixel order (megakernel): both equal to the twin; the compacted call
+    bounded by the lesser work of the two packings of its rays."""
+    mega_rows = bounce2_rows(integrator.trace_sample, width, height, rr_start)
+    in_order = compare_sweep(f"{label}, megakernel bounce 2 (pixel order)", scene, *mega_rows)
+    live = int(mega_rows[1].sum())
+    del mega_rows
+    compact_rows = bounce2_rows(wavefront.trace_sample_wavefront, width, height, rr_start)
+    assert int(compact_rows[1].sum()) == live < width * height, "not the same lanes"
+    assert bool(compact_rows[1].reshape(-1)[:live].all()), "not compacted"
+    compact = compare_sweep(f"{label}, wavefront bounce 2 (compacted)", scene, *compact_rows,
+                            same_rays=in_order)
+    print(f"compacted / pixel order: {compact['ms'] / in_order['ms']:.3f} of the kernel time, "
+          f"{compact['work']['visits'] / in_order['work']['visits']:.3f} of the visits, "
+          f"{compact['packed_gflop'] / in_order['packed_gflop']:.3f} of the packed GFLOP")
+    return compact, in_order
+
+
+compacted, uncompacted = compare_bounce2(f"{SIZE}^2 rr {RR}", SIZE, SIZE, RR)
+# the motion preview, for every display type
+previews = {}
+for kind in ("final", "color", "normal", "depth"):
+    pv, pv_s = timed(lambda: mega.preview_frame(desc.camera, 8, kind))
+    assert pv.shape == (SIZE, SIZE, 3) and pv.dtype == np.uint8 and pv.any(), kind
+    previews[kind] = pv_s
+print("preview_frame: " + ", ".join(f"{k} {s * 1e3:.1f} ms" for k, s in previews.items()))
+_, dn_s = timed(lambda: tracer.denoise(desc.camera))
+final = tracer.display("final")
+assert final.shape == (SIZE, SIZE, 3) and (final != tracer.display("color")).any()
+print(f"denoise {dn_s * 1e3:.1f} ms; display('final') shows the denoised image")
+
+# --- 13 ------------------------------------------------------------------
+phase("13 the CLI as a user runs it: python -m tpupt_torch.cli, in a subprocess")
+
+
+def decode_png(path):
+    """The image of a PNG that utils.image wrote (8-bit RGB, filter 0)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", path
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        chunks[tag] = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(name, *args, out_dir=OUT):
+    """Run the CLI on a shipped scene; returns (stats, launches, image,
+    wall)."""
+    png, stats = (os.path.join(out_dir, f"cli_{name}.{ext}") for ext in ("png", "json"))
+    cmd = [sys.executable, "-m", "tpupt_torch.cli", *args, "-o", png, "--stats-json", stats]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    print(f"$ {' '.join(cmd[2:])}  ({wall:.1f} s of wall)")
+    print("  " + "\n  ".join(ln for ln in proc.stdout.splitlines()
+                             if "time:" in ln or "Mrays" in ln or "launches" in ln))
+    tag = "Kernel launches while path tracing: "
+    launches = json.loads(next(ln[len(tag):] for ln in proc.stdout.splitlines()
+                               if ln.startswith(tag)))
+    with open(stats) as fh:
+        return json.load(fh), launches, decode_png(png), wall
+
+
+CLI_W, CLI_H, CLI_SPP, CLI_BOUNCES = 1920, 1080, 10, 50  # bunny.json's own, the CLI's default
+cli = {}
+st_b, la_b, png_b, wall_b = run_cli("bunny", "bunny.json", "--denoise")
+assert (st_b["resolution"], st_b["spp"]) == ([CLI_W, CLI_H], CLI_SPP), st_b
+# the in-process render keeps the sweep's rows of its first, third and last
+# trips, each over all CLI_W x CLI_H lanes
+trip_rows = {}
+
+
+def record_trip(*args, **kw):
+    record_trip.calls += 1
+    if record_trip.calls in (1, 3):
+        trip_rows[record_trip.calls - 1] = args[:2]
+    trip_rows["last"] = args[:2]
+    return sweep_kernel.treelet_closest_hit(*args, **kw)
+
+
+record_trip.calls = 0
+reset_counts()
+buf_b, rays_b = tpupt_torch.render_image(
+    scene, desc.camera, CLI_W, CLI_H, spp=CLI_SPP, max_bounces=CLI_BOUNCES,
+    intersect_fn=functools.partial(intersect.intersect_scene_ids, closest_hit=record_trip))
+assert st_b["rays"] == int(rays_b), (st_b["rays"], int(rays_b))
+assert la_b == {k: v for k, v in read_counts().items() if k in la_b}, (la_b, read_counts())
+dn_b = tpupt_torch.atrous_denoise(buf_b.color.reshape(CLI_H, CLI_W, 3),
+                                  buf_b.normal.reshape(CLI_H, CLI_W, 3),
+                                  buf_b.depth.reshape(CLI_H, CLI_W), desc.camera)
+assert np.array_equal(png_b, to_uint8(dn_b.cpu().numpy())), "the CLI's PNG != the render's"
+cli["bunny.json"] = dict(stats=st_b, launches=la_b, wall_s=wall_b)
+print(f"  {st_b['rays']} segments = the in-process render's; launches {la_b} = the in-process "
+      f"render's; the PNG = its denoised display  [{smi}]")
+del buf_b, dn_b
+last_trip = record_trip.calls - 1
+cli_trips = {}
+for trip in (0, 2, "last"):
+    rows_t, act_t = trip_rows.pop(trip)
+    assert act_t.shape[0] == -(-CLI_W * CLI_H // packets.PACKET), act_t.shape  # every lane
+    name = f"trip {last_trip} (the last)" if trip == "last" else f"trip {trip}"
+    cli_trips[f"cli_bunny_trip{last_trip if trip == 'last' else trip}"] = compare_sweep(
+        f"CLI render {CLI_W}x{CLI_H}, {name}", scene, rows_t, act_t)
+    del rows_t, act_t
+
+st_s, la_s, png_s, wall_s = run_cli("bunny_streaming", "bunny.json", "--method", "streaming",
+                                    "--spp", "2")
+_, rays_s2 = tpupt_torch.render_image(scene, desc.camera, CLI_W, CLI_H, spp=2,
+                                      max_bounces=CLI_BOUNCES)
+assert st_s["rays"] == int(rays_s2), (st_s["rays"], int(rays_s2))
+assert la_s["treelet_closest_hit"] > 0 and png_s.shape == (CLI_H, CLI_W, 3), la_s
+cli["bunny.json --method streaming --spp 2"] = dict(stats=st_s, launches=la_s, wall_s=wall_s)
+print(f"  {st_s['rays']} segments = the chained render's at 2 spp  [{smi}]")
+# the streaming command's first sample, bounce 2: compacted, and in pixel
+# order
+cli_compacted, cli_uncompacted = compare_bounce2(f"CLI {CLI_W}x{CLI_H} no RR", CLI_W, CLI_H,
+                                                 None)
+
+st_a, la_a, png_a, wall_a = run_cli("cornell_area", "cornell_area.json")
+assert (st_a["resolution"], st_a["spp"]) == ([NEE_SIZE, NEE_SIZE], 16), st_a
+assert la_a["treelet_closest_hit"] > 0 and la_a["treelet_any_hit"] > 0, la_a
+assert st_a["rays"] > NEE_SIZE * NEE_SIZE and png_a.any(), st_a
+cli["cornell_area.json"] = dict(stats=st_a, launches=la_a, wall_s=wall_a)
+print(f"  [{smi}]")
+# the device's time in the bunny command's render: the same render once
+# more in this process under torch.profiler, over the CLI's unprofiled
+# path-tracing stage
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    tpupt_torch.render_image(scene, desc.camera, CLI_W, CLI_H, spp=CLI_SPP,
+                             max_bounces=CLI_BOUNCES)
+    torch.cuda.synchronize()
+kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+with open(os.path.join(OUT, "cli_bunny_render_profile.txt"), "w") as fh:
+    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+cli_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+cli_sweep_ms = sum(e.self_device_time_total for e in kern
+                   if "treelet_closest_hit_kernel" in e.key) / 1e3
+cli["bunny.json"].update(profiled_device_busy_ms=cli_busy_ms, profiled_sweep_ms=cli_sweep_ms,
+                         profiled_kernels=sum(e.count for e in kern))
+print(f"profiled bunny render (the CLI's): device busy {cli_busy_ms:.1f} ms = "
+      f"{cli_busy_ms / 1e3 / st_b['path_tracing_secs']:.1%} of the CLI's path-tracing stage; "
+      f"treelet_closest_hit_kernel {cli_sweep_ms:.1f} ms; {sum(e.count for e in kern)} kernels"
+      if cli_busy_ms > 0 else "profiled render: the profiler recorded no device time (not measured)")
+# --profile writes a Chrome trace of the path-tracing stage (a small render)
+with tempfile.TemporaryDirectory() as tmp:
+    run_cli("profile", "bunny.json", "--spp", "1", "--resolution", "256x144", "--profile", tmp,
+            out_dir=tmp)
+    with open(os.path.join(tmp, "path_tracing_trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+n_traced = sum(1 for e in events if e.get("cat") == "kernel")
+assert n_traced > 0 and any("treelet_closest_hit_kernel" in e.get("name", "") for e in events)
+print(f"  --profile: {len(events)} trace events, {n_traced} of them kernels on the card")
+
+# --- 14 ------------------------------------------------------------------
+phase("14 the headless viewer on bunny.json, 512^2")
+VIEW = 512
+viewer = InteractiveViewer(fresh_tracer(size=VIEW),
+                           FirstPersonCameraController(vfov=desc.camera.vfov))
+frames = []
+for _ in range(3):
+    frame, frame_s = timed(viewer.step_frame)
+    assert frame.shape == (VIEW, VIEW, 3) and frame.dtype == np.uint8
+    frames.append((viewer.tracer.iteration, frame_s))
+assert [it for it, _ in frames] == sorted(it for it, _ in frames) and frames[0][0] > 0, frames
+assert viewer.on_key("w") and viewer.moving and viewer.tracer.iteration == 0
+frame, move_s = timed(viewer.step_frame)
+assert frame.shape == (VIEW, VIEW, 3) and viewer.tracer.iteration == 0
+assert (viewer._preview.width, viewer._preview.height) == (VIEW // 4, VIEW // 4)
+print(f"idle frames: (iteration, s) {[(it, round(s, 3)) for it, s in frames]}; after 'w' one "
+      f"{viewer._preview.width}^2 preview frame in {move_s * 1e3:.1f} ms, iteration stays 0")
+
 # --- report ----------------------------------------------------------------
 report = {
     "kernels": [dict(
@@ -794,13 +1086,18 @@ report = {
         source="tpupt_torch/accel/csrc/treelet_kernels.cu",
         replaces="tpupt/accel/pallas_sweep.py:54",
         launches=launches["treelet_closest_hit"],
-        max_abs_err=max(primary["max_abs_err"], secondary["max_abs_err"],
-                        closest_area["max_abs_err"]),
+        max_abs_err=max(r["max_abs_err"] for r in (
+            primary, secondary, closest_area, compacted, uncompacted, cli_compacted,
+            cli_uncompacted, *cli_trips.values())),
         # the top-level times are the 1024^2 primaries'
         ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
         bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
+        cli_launches={k: v["launches"]["treelet_closest_hit"] for k, v in cli.items()},
         inputs={"primaries": primary, "secondaries": secondary,
-                "cornell_area_bounce0": closest_area},
+                "cornell_area_bounce0": closest_area, "wavefront_compacted": compacted,
+                "megakernel_bounce2": uncompacted, **cli_trips,
+                "cli_wavefront_compacted": cli_compacted,
+                "cli_megakernel_bounce2": cli_uncompacted},
     ), dict(
         # the same kernel's payload form (the JAX package's diff_payload
         # sweep, tpupt/accel/packets.py:845), launched by the fwd+bwd step
@@ -824,6 +1121,7 @@ report = {
         max_abs_err=max(shadow_bunny["max_abs_err"], shadow_area["max_abs_err"]),
         ms=shadow_area["ms"], plain_ms=shadow_area["plain_ms"], bound_ms=shadow_area["bound_ms"],
         bound_by=shadow_area["bound_by"], library_ms=None,
+        cli_launches={k: v["launches"]["treelet_any_hit"] for k, v in cli.items()},
         inputs={"bunny_shadow": shadow_bunny, "cornell_area_bounce0": shadow_area},
     )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
@@ -850,6 +1148,11 @@ report = {
                         mrays_per_s=a_rays / a_wall / 1e6, forward_backward_s=a_split,
                         first_call_s=a_first_s, peak_bytes=a_peak, launches=a_launches,
                         profiled_device_busy_ms=a_busy_ms, grad_parity_gap=a_gap),
+    "path_tracer": dict(rays=pt_rays, wall_s=pt_wall, launches=pt_launches,
+                        chunk_max_abs_gap=chunk_gap, per_sample_walls_s=mode_walls,
+                        preview_s=previews, denoise_s=dn_s),
+    "cli": cli,
+    "viewer": dict(idle_frames=frames, moving_frame_s=move_s),
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
     config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR,

@@ -51,7 +51,11 @@ def test_import_keeps_jax_out():
         "import tpupt_torch.render.integrator, tpupt_torch.scene.json_parser\n"
         "import tpupt_torch.accel.sweep_kernel, tpupt_torch.accel.step_kernel\n"
         "import tpupt_torch.diff.params, tpupt_torch.denoise.atrous, tpupt_torch.scene.bake\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpupt.'))]\n"
+        "import tpupt_torch.render.progressive, tpupt_torch.render.wavefront\n"
+        "import tpupt_torch.cli.main, tpupt_torch.interactive.viewer\n"
+        "import tpupt_torch.utils.image, tpupt_torch.utils.timer, tpupt_torch.utils.debug\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'PIL', 'matplotlib')\n"
+        "       or m.startswith(('jax.', 'tpupt.', 'PIL.', 'matplotlib.'))]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

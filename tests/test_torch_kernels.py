@@ -437,3 +437,32 @@ def test_render_kernel_equals_twin(ico, cuda_device):
     assert int(rk) == int(rp) > 48 * 40 * 2
     for key in ("color", "normal", "depth"):
         assert torch.equal(getattr(bk, key), getattr(bp, key)), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["ico", "big"])
+def test_wavefront_kernels_equal_megakernel(request, scene_name, cuda_device):
+    """Streaming equals the megakernel bit for bit with the kernels, and
+    the sweep on each compacted wavefront bounce (live lanes at the front,
+    the tail inactive padding) equals its twin."""
+    from tpupt_torch.render.integrator import trace_sample
+    from tpupt_torch.render.wavefront import trace_sample_wavefront
+
+    scene = request.getfixturevalue(scene_name).to(cuda_device)
+    cam = make_camera(position=(0, 0, 3), vfov=np.pi / 2)
+    seen = []
+
+    def checked(*args, **kw):
+        got = sweep_kernel.treelet_closest_hit(*args, **kw)
+        for a, b in zip(got, sweep_kernel.treelet_closest_hit_plain(*args, **kw)):
+            assert torch.equal(a, b)
+        seen.append(int(args[1].sum()))
+        return got
+
+    hit = functools.partial(intersect_scene_ids, closest_hit=checked)
+    kw = dict(max_bounces=8, rr_start=2)
+    a = trace_sample(scene, cam, 64, 48, 3, **kw)
+    b = trace_sample_wavefront(scene, cam, 64, 48, 3, intersect_fn=hit, **kw)
+    assert int(a[3]) == int(b[3]) == sum(seen) and seen[-1] < 64 * 48
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)

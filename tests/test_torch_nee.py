@@ -166,15 +166,16 @@ def _check_buffers(name, patched, got, want):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_trace_sample_matches_jax(scenes, name):
-    """One differentiable sample (the port's trace_sample is the
-    differentiable form, refine_hit's hit record), with roulette."""
+    """One differentiable sample (``differentiable=True``: refine_hit's
+    hit record), with roulette."""
     jscene, jcam, pscene, pcam = scenes[name]
     with jax.disable_jit():
         jc, jn, jd, jr = jax_integrator.trace_sample(jscene, jcam, W, H, 1, max_bounces=4,
                                                      differentiable=True, rr_start=2)
     for patched in (False, True) if name in CORNELL else (False,):
         with torch.no_grad(), _xla_elementary() if patched else contextlib.nullcontext():
-            pc, pn, pd, pr = integrator.trace_sample(pscene, pcam, W, H, 1, 4, rr_start=2)
+            pc, pn, pd, pr = integrator.trace_sample(pscene, pcam, W, H, 1, 4,
+                                                       differentiable=True, rr_start=2)
         assert int(pr) == int(jr) > W * H
         _check_buffers(name, patched, [t.numpy() for t in (pc, pn, pd)],
                        [np.asarray(t) for t in (jc, jn, jd)])

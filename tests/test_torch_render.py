@@ -189,14 +189,24 @@ def test_accumulate_matches_jax(iteration):
         np.testing.assert_allclose(getattr(pb, k).numpy(), np.asarray(getattr(jb, k)), rtol=1e-6)
 
 
-def test_unported_paths_raise(sphere_scene):
-    """The per-sample forward loop is not ported and raises; a scene with
-    an emitter renders (next-event estimation), forward and
-    differentiable, with finite output (its parity is test_torch_nee.py's)."""
-    pscene = port_scene(sphere_scene)
-    cam = make_camera()
-    with pytest.raises(NotImplementedError):
-        render_image(pscene, cam, 8, 8, chain_samples=False)
+def test_per_sample_loop_and_emitters_render(sphere_scene, full_scene):
+    """Nothing raises any more.  The per-sample forward loop
+    (``chain_samples=False``) renders what the chained loop renders: equal
+    ray counts, images at IMAGE (the amplified-ulp tolerance
+    test_chained.py holds the JAX package's two loops to); and a scene
+    with an emitter renders (next-event estimation), forward and
+    differentiable, with finite output (its parity is
+    test_torch_nee.py's)."""
+    cam = make_camera(vfov=np.pi / 2)
+    kw = dict(spp=3, max_bounces=6, rr_start=2, start_iteration=1)
+    for jscene in (sphere_scene, full_scene):
+        pscene = port_scene(jscene)
+        chained, rc = render_image(pscene, cam, 16, 16, **kw)
+        per_sample, rs = render_image(pscene, cam, 16, 16, chain_samples=False, **kw)
+        assert int(rc) == int(rs) > 16 * 16 and per_sample.iteration == chained.iteration == 4
+        for k in ("color", "normal", "depth"):
+            np.testing.assert_allclose(getattr(per_sample, k).numpy(),
+                                       getattr(chained, k).numpy(), err_msg=k, **IMAGE)
     d = SceneDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
     d.add_material("floor", "lambertian", albedo=(0.7, 0.7, 0.7))
     d.add_material("lamp", "diffuse_light", emit=(4.0, 4.0, 4.0))

@@ -1,10 +1,12 @@
 """tpupt_torch — the tpupt path tracer ported to PyTorch and CUDA.
 
 The JAX package ``tpupt`` is the reference; this package mirrors its
-layout (core/, sampling/, scene/, accel/, render/, diff/, denoise/) and
-names, imports torch and numpy and never JAX.  The closest-hit treelet
-sweep runs as a hand-written CUDA kernel on the card (accel/csrc/), and as
-a plain torch twin on the CPU.  ``render_image(differentiable=True)``
+layout (core/, sampling/, scene/, accel/, render/, diff/, denoise/, utils/,
+cli/, interactive/) and names, imports torch and numpy and never JAX.
+``PathTracer`` is the progressive engine and ``python -m tpupt_torch.cli``
+the headless renderer.  The closest-hit treelet sweep runs as a
+hand-written CUDA kernel on the card (accel/csrc/), and as a plain torch
+twin on the CPU.  ``render_image(differentiable=True)``
 renders under autograd; ``extract_params``/``with_params`` name what a
 gradient reaches.
 
@@ -28,6 +30,7 @@ from tpupt_torch.core.types import (  # noqa: E402
 from tpupt_torch.denoise.atrous import atrous_denoise  # noqa: E402
 from tpupt_torch.diff.params import extract_params, params_from_numpy, with_params  # noqa: E402
 from tpupt_torch.render.integrator import render_image  # noqa: E402
+from tpupt_torch.render.progressive import PathTracer  # noqa: E402
 from tpupt_torch.scene.description import SceneDescription  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 
@@ -36,6 +39,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Camera",
     "Materials",
+    "PathTracer",
     "RenderBuffers",
     "SceneArrays",
     "SceneDescription",

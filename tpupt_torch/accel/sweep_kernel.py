@@ -237,3 +237,12 @@ def treelet_any_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
 
 
 treelet_any_hit.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far in this process, by kernel form."""
+    return {
+        "treelet_closest_hit": treelet_closest_hit.launches,
+        "treelet_closest_hit(payload=True)": treelet_closest_hit.payload_launches,
+        "treelet_any_hit": treelet_any_hit.launches,
+    }

@@ -207,3 +207,13 @@ class RenderBuffers:
     normal: torch.Tensor  # (N, 3) f32
     depth: torch.Tensor  # (N,) f32
     iteration: int = 0
+
+    @classmethod
+    def create(cls, n_pixels: int, device=None, iteration: int = 0) -> "RenderBuffers":
+        """Zeroed buffers for ``n_pixels``, at sample ``iteration``."""
+        return cls(
+            color=torch.zeros((n_pixels, 3), device=device),
+            normal=torch.zeros((n_pixels, 3), device=device),
+            depth=torch.zeros((n_pixels,), device=device),
+            iteration=iteration,
+        )

@@ -11,12 +11,15 @@ path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
 is that of the per-sample loop, with the same ray count.  The port runs
 this as one flat loop with a host check for live lanes on every trip.
 
-Differentiable (``differentiable=True``): a loop over samples, each
-``trace_sample``: the treelet table is rebaked from the scene's positions,
-the slot table is built once, and each bounce finds its hit ids with the
-sweep's payload form outside autograd and recomputes the hit in closed
-form (``intersect.refine_hit``) under it.  The whole graph is kept for the
-backward pass; the sweep never runs in it.
+Per sample (``chain_samples=False``, and every differentiable render): a
+loop over samples, each one ``trace_sample`` folded in by ``accumulate``.
+A forward ``trace_sample`` is a flat bounce loop over the closest-hit
+pass.  A differentiable one (``differentiable=True``) rebakes the treelet
+table from the scene's positions, builds the slot table once, and each
+bounce finds its hit ids with the sweep's payload form outside autograd
+and recomputes the hit in closed form (``intersect.refine_hit``) under
+it.  The whole graph is kept for the backward pass; the sweep never runs
+in it.
 
 Scenes with emitters run next-event estimation (NEE) with multiple
 importance sampling (MIS): every diffuse hit also samples each sphere
@@ -65,6 +68,7 @@ from tpupt_torch.render.materials import (
 )
 from tpupt_torch.sampling.rng import bounce_counter, jitter_counters, pixel_seed, uniform
 from tpupt_torch.scene.bake import rebake_treelets
+from tpupt_torch.utils import debug
 
 MAX_BOUNCES_DEFAULT = 50  # reference max_bounces
 
@@ -346,6 +350,13 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
             apply = torch.full_like(al, apply)
         out["color"] = vec.where(apply & al, tp, out["color"])
         out["alive"] = torch.where(apply, al, out["alive"])
+    # TPUPT_DEBUG=1 guards on the bounce's outputs (nothing when unset)
+    debug.check_finite(
+        "bounce radiance/throughput",
+        out["radiance"].x, out["radiance"].y, out["radiance"].z,
+        out["color"].x, out["color"].y, out["color"].z,
+    )
+    debug.check_finite("bounce scatter", out["ro"].x, out["rd"].x, out["normal"].x)
     return out
 
 
@@ -433,21 +444,40 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
     return buffers, segs.sum()
 
 
-def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=None,
-                 intersect_fn=intersect_scene_ids_diff, any_hit=None):
-    """One differentiable sample per pixel.  Returns (color (N, 3), normal
-    (N, 3), depth (N,), traced segments as a 0-dim int64 tensor), all but
-    the count differentiable in the scene's float leaves.
+def _partition_perm(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable-partition permutation, live lanes first: ``perm[j]`` is the
+    lane that moves to position j.  Built from prefix sums and one
+    scatter.  Returns (perm (N,) int64, live count as a 0-dim tensor)."""
+    n = alive.shape[0]
+    alive_i = alive.to(torch.int64)
+    count = alive_i.sum()
+    pos_live = torch.cumsum(alive_i, 0) - 1
+    pos_dead = count + torch.cumsum(1 - alive_i, 0) - 1
+    dest = torch.where(alive, pos_live, pos_dead)
+    lanes = torch.arange(n, dtype=torch.int64, device=alive.device)
+    return torch.zeros_like(lanes).scatter_(0, dest, lanes), count
 
-    The treelet table is rebaked from ``scene.positions`` first, so the
-    traced geometry is that of the parameters and the sweep's payload
-    copies the rows of the slot table built here once; NEE's shadow rays
-    trace the same table.  The bounce loop stops early once no lane is
-    alive: a dead lane changes nothing."""
+
+def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCES_DEFAULT,
+                 differentiable=False, rr_start=None, intersect_fn=None, any_hit=None):
+    """One sample per pixel.  Returns (color (N, 3), normal (N, 3), depth
+    (N,), traced segments as a 0-dim int64 tensor) in pixel order.
+
+    Forward (the default): a flat bounce loop over ``intersect_fn``
+    (default ``intersect_scene_ids``), which hands back the hit record.
+    ``differentiable=True``: the treelet table is rebaked from
+    ``scene.positions`` first, so the traced geometry is that of the
+    parameters and the sweep's payload copies the rows of the slot table
+    built here once; each bounce recomputes its hit with ``refine_hit``
+    from the ids of ``intersect_fn`` (default ``intersect_scene_ids_diff``),
+    and the outputs are differentiable in the scene's float leaves.  NEE's
+    shadow rays trace the same table through ``any_hit``.  Either loop
+    stops early once no lane is alive: a dead lane changes nothing."""
     tri_table = None
-    if any(k == OBJ_MESH for k in scene.s_obj_kind):
+    if differentiable and any(k == OBJ_MESH for k in scene.s_obj_kind):
         scene = rebake_treelets(scene)
         tri_table = slot_tri_table(scene)
+    fn = intersect_fn or (intersect_scene_ids_diff if differentiable else intersect_scene_ids)
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
     state, seed = _fresh_state(scene, camera, width, height, pix, iteration)
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
@@ -455,7 +485,7 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=
         if not bool(state["alive"].any()):
             break
         rays = rays + state["alive"].sum()
-        state = _bounce_body(scene, seed, state, b, rr_start, intersect_fn, use_refine=True,
+        state = _bounce_body(scene, seed, state, b, rr_start, fn, use_refine=differentiable,
                              tri_table=tri_table, any_hit=any_hit)
     # paths alive at the bounce cap add their raw throughput
     final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
@@ -463,17 +493,14 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces, rr_start=
 
 
 def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                    start_iteration, intersect_fn, any_hit=None):
-    """The differentiable render: ``spp`` samples, each a ``trace_sample``,
-    folded by ``accumulate``."""
-    n = width * height
-    zero = torch.zeros((n, 3), device=scene.device)
-    buffers = RenderBuffers(color=zero, normal=zero, depth=zero[:, 0],
-                            iteration=int(start_iteration))
+                    start_iteration, differentiable, intersect_fn, any_hit=None):
+    """``spp`` samples, each a ``trace_sample``, folded by ``accumulate``."""
+    buffers = RenderBuffers.create(width * height, scene.device, int(start_iteration))
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for it in range(start_iteration, start_iteration + spp):
-        color, normal, depth, r = trace_sample(scene, camera, width, height, it, max_bounces,
-                                               rr_start, intersect_fn, any_hit)
+        color, normal, depth, r = trace_sample(
+            scene, camera, width, height, it, max_bounces, differentiable=differentiable,
+            rr_start=rr_start, intersect_fn=intersect_fn, any_hit=any_hit)
         buffers = accumulate(buffers, color, normal, depth)
         rays = rays + r
     return buffers, rays
@@ -500,21 +527,24 @@ def render_image(
 
     ``differentiable=True`` records the render for autograd: its buffers
     are differentiable in the scene's float leaves (``diff.extract_params``
-    / ``with_params``).  Otherwise it runs the chained forward loop under
-    ``torch.no_grad()``.  ``intersect_fn`` is the hit pass: by default
+    / ``with_params``).  Otherwise it runs under ``torch.no_grad()``: the
+    chained forward loop, or with ``chain_samples=False`` one forward
+    ``trace_sample`` per sample (the same ray count; pixels at
+    amplified-ulp tolerance).  ``intersect_fn`` is the hit pass: by default
     ``intersect_scene_ids`` forward and ``intersect_scene_ids_diff`` when
     differentiable (the twin: either with ``closest_hit=
     sweep_kernel.treelet_closest_hit_plain`` bound).  ``any_hit`` is the
     mesh sweep of NEE's shadow rays, ``sweep_kernel.treelet_any_hit`` by
     default (the twin: ``treelet_any_hit_plain``)."""
-    if not chain_samples and not differentiable:
-        raise NotImplementedError("only the sample-chained forward loop is ported")
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
     if differentiable:
         return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, intersect_fn or intersect_scene_ids_diff, any_hit)
+                               start_iteration, True, intersect_fn, any_hit)
     with torch.no_grad():
+        if not chain_samples:
+            return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
+                                   start_iteration, False, intersect_fn, any_hit)
         return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
                                start_iteration, intersect_fn or intersect_scene_ids, any_hit)
