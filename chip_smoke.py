@@ -12,9 +12,22 @@ surfaces: the progressive engine (``PathTracer``) on the bunny render, its
 streaming mode bit-equal to the megakernel and the sweep on a compacted
 wavefront bounce; the CLI in subprocesses at the scenes' own settings,
 with the sweep held against its twin on the rows of the same 1920x1080
-renders (chained trips, a compacted bounce); the headless viewer.
+renders (chained trips, a compacted bounce); the headless viewer.  Then
+inverse rendering: BASELINE config 4 as a fit of the albedos on the bunny
+render at 1024^2 through the denoiser (its loss falls, frozen leaves stay
+bit-equal), the fit's loss and gradients held against the twins' at
+128^2, and a geometry fit; row bands bit-equal to the full render, the
+sharded render and gradients on a one-rank NCCL group and on two gloo
+processes sharing the card; and the reference oracles (the per-ray BVH
+walk, the brute force) against the sweep's hits, on bunny.json and on
+ajax-white-hi.json's 327,680 triangles, and the brute-force render,
+which traces its shadow rays itself, against the render on bunny.json
+and cornell_area.json.
 
     python chip_smoke.py
+
+(``python chip_smoke.py --band-rank R PORT OUT`` is one rank of phase 16's
+two-process render, which the script starts itself.)
 
 Phases print as they go; any failure raises and the script exits non-zero.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -25,12 +38,15 @@ it fails before printing any result.  Its standard output ends with:
     for the payload form; the cornell_area render for the any-hit kernel),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
+    in a fit step and in each of phase 16's band renders,
   * {"ok": true, "device": {...}} as the last line.
 """
 
+import dataclasses
 import functools
 import json
 import os
+import socket
 import struct
 import subprocess
 import sys
@@ -51,7 +67,12 @@ import tpupt_torch  # noqa: E402  (needs the repository beside this script)
 from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noqa: E402
 from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
 from tpupt_torch.core.vec import Vec3  # noqa: E402
+from tpupt_torch.cpu_ref.renderer import intersect_scene_ids_brute, render_image_ref  # noqa: E402
+from tpupt_torch.diff.fit import fit_scene, render_loss  # noqa: E402
 from tpupt_torch.diff.params import MATERIAL_LEAVES, PARAM_LEAVES  # noqa: E402
+from tpupt_torch.dist.sharding import (  # noqa: E402
+    init_distributed, make_tile_mesh, render_image_sharded, render_loss_and_grads_sharded,
+)
 from tpupt_torch.interactive.camera_controller import FirstPersonCameraController  # noqa: E402
 from tpupt_torch.interactive.viewer import InteractiveViewer  # noqa: E402
 from tpupt_torch.render import integrator, intersect, wavefront  # noqa: E402
@@ -73,6 +94,11 @@ NEE_SIZE, NEE_BOUNCES, NEE_RR = 512, 4, 2
 NEE_SPP = {"cornell.json": 4, "cornell_area.json": 16}
 NEE_DIFF_SPP = 4
 OUT = os.path.join(ROOT, "chiprun_out")
+# BASELINE config 4 as a fit (fit_scene's 1 spp and 4 bounces, the
+# denoiser on, grads to the albedos); the row bands' render; the
+# two-process check's size
+FIT_STEPS, BANDS, BAND_SPP = 8, 4, 4
+BAND2 = dict(size=512, spp=4, max_bounces=50, rr_start=8, diff_spp=4)
 # published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
 # outside the tensor cores, HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -115,12 +141,56 @@ def bound(flops, nbytes):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+LEAVES = PARAM_LEAVES + tuple(f"materials.{k}" for k in MATERIAL_LEAVES)
+
+
+def leaf(params, name):
+    return params["materials"][name[10:]] if name.startswith("materials.") else params[name]
+
+
+def band_worker(rank, port, out):
+    """One rank of phase 16's two-process run on the one card: gloo over
+    CUDA tensors (NCCL takes one rank per device).  Renders its band of
+    BAND2 and takes both placements' gradients; saves what it got."""
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    ensure_models(names=["bunny.obj"])
+    d = scene_from_json(os.path.join(locate_asset_path(ROOT), "scenes", "bunny.json"))
+    scn = d.build(leaf_size=32, device=DEV)
+    size, spp, mb, rr = BAND2["size"], BAND2["spp"], BAND2["max_bounces"], BAND2["rr_start"]
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf, rays = render_image_sharded(scn, d.camera, size, size, spp, max_bounces=mb, rr_start=rr)
+    torch.cuda.synchronize()
+    res.update(render_wall=time.perf_counter() - t0, rays=int(rays), color=buf.color.cpu().numpy(),
+               normal=buf.normal.cpu().numpy(), depth=buf.depth.cpu().numpy())
+    target = torch.zeros((size * size, 3), device=DEV)
+    for overlap in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = render_loss_and_grads_sharded(scn, d.camera, target, size, size,
+                                                    BAND2["diff_spp"], max_bounces=DIFF_BOUNCES,
+                                                    overlap_grad_psum=overlap)
+        torch.cuda.synchronize()
+        key = "overlap" if overlap else "posthoc"
+        res[f"{key}_wall"] = time.perf_counter() - t0
+        res[f"{key}_loss"] = float(loss)
+        for k in LEAVES:
+            res[f"{key}.{k}"] = leaf(grads, k).cpu().numpy()
+    np.savez(out, **res)
+    torch.distributed.destroy_process_group()
+
+
 def require_equal(name, got, want):
     for i, (a, b) in enumerate(zip(got, want)):
         if a.dtype != b.dtype or not torch.equal(a, b):
             gap = ulp_gap(a.float(), b.float()) if a.is_floating_point() else "n/a"
             raise AssertionError(f"{name}: output {i} differs from the twin (max ulp gap {gap})")
 
+
+if sys.argv[1:2] == ["--band-rank"]:
+    band_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    sys.exit(0)
 
 # --- 0 -------------------------------------------------------------------
 phase("0 environment")
@@ -421,11 +491,6 @@ print(f"ray count equal: {int(rk)}")
 # --- 6 -------------------------------------------------------------------
 phase(f"6 main path, fwd+bwd: bunny.json {SIZE}^2, {DIFF_SPP} spp, {DIFF_BOUNCES} bounces, "
       f"loss sum(color^2), backward to every extract_params leaf")
-LEAVES = PARAM_LEAVES + tuple(f"materials.{k}" for k in MATERIAL_LEAVES)
-
-
-def leaf(params, name):
-    return params["materials"][name[10:]] if name.startswith("materials.") else params[name]
 
 
 def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None, denoise=False,
@@ -1079,7 +1144,379 @@ assert (viewer._preview.width, viewer._preview.height) == (VIEW // 4, VIEW // 4)
 print(f"idle frames: (iteration, s) {[(it, round(s, 3)) for it, s in frames]}; after 'w' one "
       f"{viewer._preview.width}^2 preview frame in {move_s * 1e3:.1f} ms, iteration stays 0")
 
+# --- 15 ------------------------------------------------------------------
+phase(f"15 BASELINE config 4 as a fit: bunny.json {SIZE}^2, 1 spp, 4 bounces, the denoiser, "
+      f"albedos from 0.5, {FIT_STEPS} Adam steps")
+with torch.no_grad():
+    fit_target = tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=1, max_bounces=4,
+                                          differentiable=True)[0].color
+fit_start = dataclasses.replace(scene, materials=dataclasses.replace(
+    scene.materials, albedo=torch.full_like(scene.materials.albedo, 0.5)))
+step_ends = []
+
+
+def on_step(i, loss):
+    torch.cuda.synchronize()
+    step_ends.append(time.perf_counter())
+
+
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+mem0 = torch.cuda.memory_allocated()
+reset_counts()
+t0 = time.perf_counter()
+fitted, fit_losses = fit_scene(fit_start, desc.camera, fit_target, SIZE, SIZE, steps=FIT_STEPS,
+                               denoise=True, material_filter=("albedo",), callback=on_step)
+fit_launches = read_counts()
+fit_peak = torch.cuda.max_memory_allocated() - mem0
+fit_walls = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
+assert len(fit_losses) == FIT_STEPS and all(np.isfinite(fit_losses)), fit_losses
+assert fit_losses[-1] < fit_losses[0], fit_losses
+assert fit_launches["treelet_closest_hit(payload=True)"] > 0, fit_launches
+assert fit_launches["treelet_closest_hit"] == 0 and fit_launches["winner_step"] == 0, fit_launches
+for name in ("fuzz", "ior", "emission"):
+    assert torch.equal(getattr(fitted.materials, name), getattr(scene.materials, name)), name
+for name in ("positions", "sphere_center", "sphere_radius"):
+    assert torch.equal(getattr(fitted, name), getattr(scene, name)), name
+assert not torch.equal(fitted.materials.albedo, fit_start.materials.albedo)
+fit_wall = sorted(fit_walls[1:])[len(fit_walls[1:]) // 2]
+fit_per_step = {k: v / FIT_STEPS for k, v in fit_launches.items()}
+print(f"losses {[round(x, 6) for x in fit_losses]}; launches {fit_launches} "
+      f"({fit_per_step['treelet_closest_hit(payload=True)']:g} payload sweeps a step); peak "
+      f"memory {fit_peak / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB resident before it")
+print(f"step walls {', '.join(f'{w:.3f}' for w in fit_walls)} s; median of steps 2-{FIT_STEPS} "
+      f"{fit_wall:.3f} s  [{smi}]")
+print("  albedo " + str([[round(x, 4) for x in row] for row in fitted.materials.albedo.tolist()])
+      + " (true " + str([[round(x, 4) for x in row] for row in scene.materials.albedo.tolist()])
+      + ")")
+# one more step under the profiler; the denoiser's forward and backward
+# alone on a render's buffers, filter_size 4 as in render_loss
+with torch.profiler.profile(activities=acts) as prof:
+    fit_scene(fit_start, desc.camera, fit_target, SIZE, SIZE, steps=1, denoise=True,
+              material_filter=("albedo",))
+    torch.cuda.synchronize()
+kav = prof.key_averages()
+with open(os.path.join(OUT, "fit_step_profile.txt"), "w") as fh:
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
+on_card = [e for e in kav if e.device_type == torch.autograd.DeviceType.CUDA]
+fit_busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+fit_kernels = sum(e.count for e in on_card)
+with torch.no_grad():
+    fb, _ = tpupt_torch.render_image(fit_start, desc.camera, SIZE, SIZE, spp=1, max_bounces=4,
+                                     differentiable=True)
+fit_dn_in = [t.reshape(SIZE, SIZE, -1).squeeze(-1).requires_grad_(True)
+             for t in (fb.color, fb.normal, fb.depth)]
+
+
+def fit_denoise_step():
+    img = tpupt_torch.atrous_denoise(*fit_dn_in, desc.camera, filter_size=4)
+    torch.autograd.grad(((img - fit_target.reshape(SIZE, SIZE, 3)) ** 2).mean(), fit_dn_in)
+    torch.cuda.synchronize()
+
+
+fit_denoise_step()
+with torch.profiler.profile(activities=acts) as prof:
+    fit_denoise_step()
+fit_dn_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+if fit_busy_ms > 0:
+    print(f"profiled step: device busy {fit_busy_ms:.1f} ms = {fit_busy_ms / 1e3 / fit_wall:.1%} of "
+          f"the median step; {fit_kernels} kernels; the denoiser's forward and backward alone "
+          f"{fit_dn_ms:.1f} ms of device time = {fit_dn_ms / fit_busy_ms:.1%} of the step's")
+else:
+    print("profiled step: the profiler recorded no device time (not measured)")
+
+# the fit's loss and gradients, kernels against twins, at 128^2
+FIT_SMALL = 128
+with torch.no_grad():
+    tgt_small = tpupt_torch.render_image(scene, desc.camera, FIT_SMALL, FIT_SMALL, spp=1,
+                                         max_bounces=4, differentiable=True)[0].color
+
+
+def twin_render_loss(params):
+    """render_loss with the twins bound (tpupt_torch/diff/fit.py's math)."""
+    buf, _ = tpupt_torch.render_image(
+        tpupt_torch.with_params(fit_start, params), desc.camera, FIT_SMALL, FIT_SMALL, spp=1,
+        max_bounces=4, differentiable=True, intersect_fn=twin_diff,
+        any_hit=sweep_kernel.treelet_any_hit_plain)
+    img = tpupt_torch.atrous_denoise(
+        buf.color.reshape(FIT_SMALL, FIT_SMALL, 3), buf.normal.reshape(FIT_SMALL, FIT_SMALL, 3),
+        buf.depth.reshape(FIT_SMALL, FIT_SMALL), desc.camera, filter_size=4).reshape(-1, 3)
+    return torch.mean((img - tgt_small) ** 2)
+
+
+pk, pp = tpupt_torch.extract_params(fit_start), tpupt_torch.extract_params(fit_start)
+lk = render_loss(pk, fit_start, desc.camera, tgt_small, FIT_SMALL, FIT_SMALL, 1, 4, True, False)
+lp = twin_render_loss(pp)
+gk = dict(zip(LEAVES, torch.autograd.grad(lk, [leaf(pk, k) for k in LEAVES], allow_unused=True,
+                                          materialize_grads=True)))
+gp = dict(zip(LEAVES, torch.autograd.grad(lp, [leaf(pp, k) for k in LEAVES], allow_unused=True,
+                                          materialize_grads=True)))
+assert torch.allclose(lk, lp, rtol=1e-5), (float(lk), float(lp))
+fit_gap = {}
+for k in LEAVES:
+    scale = float(gp[k].abs().max())
+    assert torch.allclose(gk[k], gp[k], rtol=1e-5, atol=1e-5 * scale), k
+    fit_gap[k] = float((gk[k] - gp[k]).abs().max()) / scale if scale > 0 else 0.0
+assert float(gk["materials.albedo"].abs().max()) > 0
+print(f"render_loss at {FIT_SMALL}^2, kernels vs twins: {float(lk.detach()):.7g} vs "
+      f"{float(lp.detach()):.7g}; every "
+      f"gradient within rtol 1e-5 (largest gap {max(fit_gap.values()):.3g} of its leaf's max |grad|)")
+
+# a geometry fit: vertices and spheres too, the table rebaked every step
+GEO = 256
+with torch.no_grad():
+    tgt_geo = tpupt_torch.render_image(scene, desc.camera, GEO, GEO, spp=1, max_bounces=4,
+                                       differentiable=True)[0].color
+t0 = time.perf_counter()
+geo_fit, geo_losses = fit_scene(fit_start, desc.camera, tgt_geo, GEO, GEO, steps=3,
+                                learning_rate=1e-3, fit_geometry=True)
+torch.cuda.synchronize()
+geo_s = time.perf_counter() - t0
+assert all(np.isfinite(geo_losses)), geo_losses
+assert not torch.equal(geo_fit.positions, scene.positions)
+with torch.no_grad():
+    assert torch.equal(geo_fit.tre_tris, rebake_treelets(geo_fit).tre_tris), "stale treelet table"
+print(f"fit_geometry=True at {GEO}^2, 3 steps in {geo_s:.2f} s: losses "
+      f"{[round(x, 6) for x in geo_losses]}; the fitted table is the rebake of its positions")
+
+# --- 16 ------------------------------------------------------------------
+phase(f"16 row bands and sharding: bunny.json {SIZE}^2, {BAND_SPP} spp, {MAX_BOUNCES} bounces, "
+      f"rr {RR}, in {BANDS} bands of {SIZE // BANDS} rows")
+ROWS = SIZE // BANDS
+band_info = {}
+for chain in (True, False):
+    full_b, full_rays = tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=BAND_SPP,
+                                                 max_bounces=MAX_BOUNCES, rr_start=RR,
+                                                 chain_samples=chain)
+    parts, walls_b, launches_b = [], [], []
+    for b in range(BANDS):
+        reset_counts()
+        part, wall_b = timed(lambda: tpupt_torch.render_image(
+            scene, desc.camera, SIZE, SIZE, spp=BAND_SPP, max_bounces=MAX_BOUNCES, rr_start=RR,
+            chain_samples=chain, row0=b * ROWS, rows=ROWS))
+        launches_b.append(read_counts())
+        parts.append(part)
+        walls_b.append(wall_b)
+    assert all(c["treelet_closest_hit"] > 0 for c in launches_b), launches_b
+    for key in ("color", "normal", "depth"):
+        got = torch.cat([getattr(p[0], key) for p in parts])
+        assert torch.equal(got, getattr(full_b, key)), f"bands != the full render in {key}"
+    band_rays = [int(p[1]) for p in parts]
+    assert sum(band_rays) == int(full_rays), (band_rays, int(full_rays))
+    mode = "chained" if chain else "per sample"
+    band_info[mode] = dict(rays=band_rays, walls_s=walls_b, launches=launches_b)
+    print(f"{mode}: the {BANDS} bands, concatenated, equal the full render in all three buffers; "
+          f"segments {band_rays} = {int(full_rays)}; launches by band {launches_b}; walls "
+          f"{', '.join(f'{w:.3f}' for w in walls_b)} s")
+    if chain:
+        full_chained, full_chained_rays = full_b, int(full_rays)
+    del full_b, parts
+
+
+def free_port():
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def collectives(kav):
+    """{op: (calls, device ms under them)} of the all-reduce ops a profile
+    holds (with one rank, NCCL copies instead of launching its kernels)."""
+    return {e.key: (e.count, dev_total(e) / 1e3) for e in kav
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and ("allreduce" in e.key.lower() or "all_reduce" in e.key.lower())}
+
+
+# one rank of NCCL: the sharded entry points through a real group
+init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+(sh_buf, sh_rays), sh_wall = timed(lambda: render_image_sharded(
+    scene, desc.camera, SIZE, SIZE, BAND_SPP, max_bounces=MAX_BOUNCES, rr_start=RR))
+assert int(sh_rays) == full_chained_rays
+for key in ("color", "normal", "depth"):
+    assert torch.equal(getattr(sh_buf, key), getattr(full_chained, key)), key
+print(f"render_image_sharded on a one-rank NCCL group: equal to render_image, {int(sh_rays)} "
+      f"segments, {sh_wall:.3f} s")
+del sh_buf
+zeros = torch.zeros((n, 3), device=DEV)
+nccl_info = {}
+for overlap in (True, False):
+    placement = "overlap" if overlap else "posthoc"
+    (loss_s, grads_s), wall_s = timed(lambda: render_loss_and_grads_sharded(
+        scene, desc.camera, zeros, SIZE, SIZE, DIFF_SPP, max_bounces=DIFF_BOUNCES,
+        overlap_grad_psum=overlap))
+    assert torch.allclose(loss_s, d_loss, rtol=1e-5), (float(loss_s), float(d_loss))
+    gap = {}
+    for k in LEAVES:
+        a, b = leaf(grads_s, k), d_grads[k]
+        scale = float(b.abs().max())
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale), (placement, k)
+        gap[k] = float((a - b).abs().max()) / scale if scale > 0 else 0.0
+    with torch.profiler.profile(activities=acts) as prof:
+        render_loss_and_grads_sharded(scene, desc.camera, zeros, SIZE, SIZE, DIFF_SPP,
+                                      max_bounces=DIFF_BOUNCES, overlap_grad_psum=overlap)
+        torch.cuda.synchronize()
+    coll = collectives(prof.key_averages())
+    nccl_info[placement] = dict(wall_s=wall_s, loss=float(loss_s), grad_gap=gap,
+                                collectives=coll)
+    print(f"render_loss_and_grads_sharded, {placement}, {SIZE}^2 {DIFF_SPP} spp {DIFF_BOUNCES} "
+          f"bounces: loss {float(loss_s):.7g} vs {float(d_loss):.7g} (phase 6); every gradient "
+          f"within rtol 1e-5 (largest gap {max(gap.values()):.3g}); {wall_s:.3f} s; collectives "
+          f"(calls, device ms) {coll}  [{smi}]")
+torch.distributed.destroy_process_group()
+
+# two ranks on the one card, gloo over CUDA tensors
+b2 = BAND2["size"]
+with tempfile.TemporaryDirectory() as tmp:
+    port = free_port()
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--band-rank",
+                               str(r), str(port), outs[r]], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              # both ranks on this host: gloo's pairs over loopback
+                              env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"))
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a band rank exited {p.returncode}:\n{se[-3000:]}")
+    ranks2 = [dict(np.load(o)) for o in outs]
+buf2, rays2 = tpupt_torch.render_image(scene, desc.camera, b2, b2, spp=BAND2["spp"],
+                                       max_bounces=BAND2["max_bounces"],
+                                       rr_start=BAND2["rr_start"])
+l2, _, g2, *_ = fwd_bwd(b2, BAND2["diff_spp"], DIFF_BOUNCES)
+two_info = {}
+for r, res in enumerate(ranks2):
+    assert int(res["rays"]) == int(rays2), (r, int(res["rays"]), int(rays2))
+    for key in ("color", "normal", "depth"):
+        assert np.array_equal(res[key], getattr(buf2, key).cpu().numpy()), (r, key)
+    for placement in ("overlap", "posthoc"):
+        assert np.isclose(float(res[f"{placement}_loss"]), float(l2), rtol=1e-5), (r, placement)
+        for k in LEAVES:
+            b = g2[k].cpu().numpy()
+            scale = float(np.abs(b).max())
+            assert np.allclose(res[f"{placement}.{k}"], b, rtol=1e-5, atol=1e-5 * scale), \
+                (r, placement, k)
+    two_info[f"rank{r}"] = {k: float(res[k]) for k in ("render_wall", "overlap_wall",
+                                                       "posthoc_wall")}
+print(f"two gloo ranks on the card, {b2}^2: the gathered render equals one process's "
+      f"({int(rays2)} segments) on both ranks; both placements' loss and gradients match one "
+      f"process's; walls (s) {two_info}  [{smi}]")
+
+# --- 17 ------------------------------------------------------------------
+phase("17 the oracles: treelet_closest_hit's hits against the BVH walk and the brute force")
+GEOM = dict(rtol=1e-5, atol=1e-5)
+
+
+def hold_to_oracle(label, got, want):
+    """The kernel's ids and t against an oracle's: equal ids, except where
+    both find a hit at the same t within GEOM (an exact-t tie that the two
+    visit orders resolve apart); t of the agreeing hits within GEOM.
+    Returns (hits, ties, max ulp gap)."""
+    differ = ((got.kind != want.kind) | (got.obj_id != want.obj_id)
+              | (got.prim_id != want.prim_id))
+    close = torch.isclose(got.t, want.t, **GEOM)
+    bad = differ & ~close
+    assert not bool(bad.any()), f"{label}: {int(bad.sum())} lanes hit other primitives"
+    hit = (want.kind >= 0) & ~differ
+    assert torch.allclose(got.t[hit], want.t[hit], **GEOM), label
+    ties = int(differ.sum())
+    gap = ulp_gap(got.t[hit], want.t[hit])
+    print(f"  {label}: {int(hit.sum())} hits equal, {ties} exact-t ties, t within {gap} ulps")
+    return int(hit.sum()), ties, gap
+
+
+def oracles_on(label, scn, ro, rd, t_min, active, brute=True):
+    ids_k, _ = intersect.intersect_scene_ids(scn, ro, rd, t_min, active)
+    (ids_b, _), bvh_s = timed(lambda: intersect.intersect_scene_ids_bvh(scn, ro, rd, t_min,
+                                                                        active))
+    out = dict(bvh=hold_to_oracle(f"{label} vs the BVH walk ({bvh_s:.2f} s)", ids_k, ids_b))
+    if brute:
+        (ids_f, _), brute_s = timed(lambda: intersect_scene_ids_brute(scn, ro, rd, t_min, active))
+        out["brute"] = hold_to_oracle(f"{label} vs the brute force ({brute_s:.2f} s)", ids_k,
+                                      ids_f)
+    return out
+
+
+ORC = 256
+pix_o = torch.arange(ORC * ORC, device=DEV)
+with torch.no_grad():
+    st_o, seed_o = integrator._fresh_state(scene, desc.camera.to(DEV), ORC, ORC, pix_o, 0)
+    oracle_info = {"primaries": oracles_on(f"bunny.json {ORC}^2 primaries", scene, st_o["ro"],
+                                           st_o["rd"], st_o["t_min"], st_o["alive"])}
+    _ids_o, hit_o = intersect.intersect_scene_ids(scene, st_o["ro"], st_o["rd"], st_o["t_min"],
+                                                  st_o["alive"])
+    ro_o, rd_o, tmin_o, *_ = shade(scene, hit_o, st_o["ro"], st_o["rd"], st_o["t_min"],
+                                   st_o["color"], seed_o, torch.zeros_like(pix_o))
+    oracle_info["secondaries"] = oracles_on(f"bunny.json {ORC}^2 secondaries", scene, ro_o, rd_o,
+                                            tmin_o, hit_o.mask)
+REF = 128
+(bk, rk), ref_wall = timed(lambda: tpupt_torch.render_image(scene, desc.camera, REF, REF, spp=2,
+                                                            max_bounces=6))
+(bref, rref), ref_ref_wall = timed(lambda: render_image_ref(scene, desc.camera, REF, REF, spp=2,
+                                                            max_bounces=6))
+assert int(rk) == int(rref), (int(rk), int(rref))
+ref_gap = {}
+for key in ("color", "depth"):
+    a, b = getattr(bk, key), getattr(bref, key)
+    assert torch.allclose(a, b, atol=1e-4), key
+    ref_gap[key] = float((a - b).abs().max())
+print(f"render_image_ref vs render_image, {REF}^2, 2 spp, 6 bounces: {int(rk)} segments each; max "
+      f"|difference| {ref_gap}; {ref_ref_wall:.2f} s vs {ref_wall:.3f} s")
+# with NEE: the reference traces the shadow rays by its own closest hit,
+# so it launches neither kernel, while the render it checks runs both
+reset_counts()
+bak, rak = tpupt_torch.render_image(area, area_cam, REF, REF, spp=2, max_bounces=6)
+area_ref_launches = read_counts()
+assert area_ref_launches["treelet_any_hit"] > 0, area_ref_launches
+reset_counts()
+(baref, raref), area_ref_wall = timed(lambda: render_image_ref(area, area_cam, REF, REF, spp=2,
+                                                               max_bounces=6))
+assert not any(read_counts().values()), read_counts()
+assert int(rak) == int(raref), (int(rak), int(raref))
+area_ref_gap = {}
+for key in ("color", "depth"):
+    a, b = getattr(bak, key), getattr(baref, key)
+    assert torch.allclose(a, b, atol=1e-4), ("cornell_area", key)
+    area_ref_gap[key] = float((a - b).abs().max())
+print(f"render_image_ref vs render_image on cornell_area.json, {REF}^2, 2 spp, 6 bounces: "
+      f"{int(rak)} segments each; max |difference| {area_ref_gap}; the reference launched no "
+      f"kernel, the render {area_ref_launches}; {area_ref_wall:.2f} s")
+
+# ajax-white-hi.json: the kernel's first run at this treelet count
+ensure_models(names=["ajax_hi.obj"])
+hi_desc = scene_from_json(os.path.join(locate_asset_path(), "scenes", "ajax-white-hi.json"))
+(scene_hi, hi_build_s) = timed(lambda: hi_desc.build(leaf_size=32, device=DEV))
+K_hi = scene_hi.tre_min.shape[0]
+hi_smem = kernels.load().tpupt_treelet_smem_bytes(K_hi, scene_hi.s_leaf_size)
+hi_limit = torch.cuda.get_device_properties(DEV).shared_memory_per_block_optin
+print(f"ajax-white-hi.json built in {hi_build_s:.1f} s: {scene_hi.tri_idx.shape[0]} triangles, "
+      f"K={K_hi} treelets; the cull's shared memory {hi_smem} B of the block's {hi_limit} B")
+fx_h, fy_h = pixel_centers(ORC, ORC, device=DEV)
+ro_h, rd_h = generate_rays(hi_desc.camera.to(DEV), ORC, ORC, fx_h, fy_h)
+tmin_h = torch.full((ORC * ORC,), 1e-4, device=DEV)
+act_h = torch.ones(ORC * ORC, dtype=torch.bool, device=DEV)
+with torch.no_grad():
+    oracle_info["ajax_white_hi_primaries"] = oracles_on(
+        f"ajax-white-hi.json {ORC}^2 primaries", scene_hi, ro_h, rd_h, tmin_h, act_h, brute=False)
+    rows_h, actp_h = packets._pack_rows(ro_h, rd_h, tmin_h, torch.full_like(tmin_h, intersect.BIG_T),
+                                        act_h)
+hi_sweep = compare_sweep(f"ajax-white-hi.json {ORC}^2 primaries", scene_hi, rows_h, actp_h)
+hi_sweep.update(smem_bytes=hi_smem, triangles=int(scene_hi.tri_idx.shape[0]))
+del scene_hi, rows_h, actp_h
+
 # --- report ----------------------------------------------------------------
+
+
+def band_launches(name):
+    """Kernel ``name``'s launches in each band render of phase 16, by loop."""
+    return {mode: [c[name] for c in info["launches"]] for mode, info in band_info.items()}
+
+
 report = {
     "kernels": [dict(
         name="treelet_closest_hit", route="cuda",
@@ -1093,11 +1530,14 @@ report = {
         ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
         bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
         cli_launches={k: v["launches"]["treelet_closest_hit"] for k, v in cli.items()},
+        fit_step_launches=fit_per_step["treelet_closest_hit"],
+        band_launches=band_launches("treelet_closest_hit"),
         inputs={"primaries": primary, "secondaries": secondary,
                 "cornell_area_bounce0": closest_area, "wavefront_compacted": compacted,
                 "megakernel_bounce2": uncompacted, **cli_trips,
                 "cli_wavefront_compacted": cli_compacted,
-                "cli_megakernel_bounce2": cli_uncompacted},
+                "cli_megakernel_bounce2": cli_uncompacted,
+                "ajax_white_hi_primaries": hi_sweep},
     ), dict(
         # the same kernel's payload form (the JAX package's diff_payload
         # sweep, tpupt/accel/packets.py:845), launched by the fwd+bwd step
@@ -1109,6 +1549,8 @@ report = {
                         pay_area["max_abs_err"]),
         ms=pay_primary["ms"], plain_ms=pay_primary["plain_ms"], bound_ms=pay_primary["bound_ms"],
         bound_by=pay_primary["bound_by"], library_ms=None,
+        fit_step_launches=fit_per_step["treelet_closest_hit(payload=True)"],
+        band_launches=band_launches("treelet_closest_hit(payload=True)"),
         inputs={"primaries": pay_primary, "secondaries": pay_secondary,
                 "cornell_area_bounce0": pay_area},
     ), dict(
@@ -1122,6 +1564,8 @@ report = {
         ms=shadow_area["ms"], plain_ms=shadow_area["plain_ms"], bound_ms=shadow_area["bound_ms"],
         bound_by=shadow_area["bound_by"], library_ms=None,
         cli_launches={k: v["launches"]["treelet_any_hit"] for k, v in cli.items()},
+        fit_step_launches=fit_per_step["treelet_any_hit"],
+        band_launches=band_launches("treelet_any_hit"),
         inputs={"bunny_shadow": shadow_bunny, "cornell_area_bounce0": shadow_area},
     )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
@@ -1133,6 +1577,7 @@ report = {
         launches=launches["winner_step"],
         max_abs_err=float((out_k[0] - out_p[0]).abs().max()), ms=ws_ms, plain_ms=ws_plain_ms,
         bound_ms=ws_bound_ms, bound_by=ws_bound_by, library_ms=None,
+        fit_step_launches=fit_per_step["winner_step"], band_launches=band_launches("winner_step"),
     )],
     "render": dict(rays=rays, wall_s=wall, walls_s=walls, mrays_per_s=rays / wall / 1e6,
                    first_call_s=first_s, profiled_device_busy_ms=busy_ms,
@@ -1153,6 +1598,17 @@ report = {
                         preview_s=previews, denoise_s=dn_s),
     "cli": cli,
     "viewer": dict(idle_frames=frames, moving_frame_s=move_s),
+    "fit": dict(size=SIZE, steps=FIT_STEPS, losses=fit_losses, step_walls_s=fit_walls,
+                median_step_s=fit_wall, peak_bytes=fit_peak, launches=fit_launches,
+                profiled_device_busy_ms=fit_busy_ms, profiled_kernels=fit_kernels,
+                denoise_fwd_bwd_device_ms=fit_dn_ms, twin_grad_gap=fit_gap,
+                geometry_losses=geo_losses),
+    "bands": band_info,
+    "sharding": dict(nccl_one_rank=nccl_info, render_sharded_wall_s=sh_wall,
+                     gloo_two_ranks=two_info),
+    "oracles": dict(oracle_info, render_image_ref_gap=ref_gap,
+                    cornell_area_render_image_ref_gap=area_ref_gap,
+                    ajax_white_hi=dict(treelets=K_hi, smem_bytes=hi_smem, build_s=hi_build_s)),
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
     config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR,

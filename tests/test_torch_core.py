@@ -54,8 +54,11 @@ def test_import_keeps_jax_out():
         "import tpupt_torch.render.progressive, tpupt_torch.render.wavefront\n"
         "import tpupt_torch.cli.main, tpupt_torch.interactive.viewer\n"
         "import tpupt_torch.utils.image, tpupt_torch.utils.timer, tpupt_torch.utils.debug\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'PIL', 'matplotlib')\n"
-        "       or m.startswith(('jax.', 'tpupt.', 'PIL.', 'matplotlib.'))]\n"
+        "import tpupt_torch.dist.sharding, tpupt_torch.dist.bootstrap\n"
+        "import tpupt_torch.diff.fit, tpupt_torch.diff.overlap\n"
+        "import tpupt_torch.accel.traverse, tpupt_torch.cpu_ref.renderer\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'optax', 'PIL', 'matplotlib')\n"
+        "       or m.startswith(('jax.', 'optax.', 'tpupt.', 'PIL.', 'matplotlib.'))]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -75,7 +78,7 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_source_stays_off_the_jax_package(path):
     """No module of the port, not chip_smoke.py and no port script under
-    experiments/ imports jax or tpupt or
+    experiments/ imports jax, optax or tpupt or
     names a path under tpupt/ (a "tpupt" path component, or a file path
     such as "tpupt/native/x.cpp"; a "file:line" citation is no path)."""
     with open(path) as fh:
@@ -88,9 +91,22 @@ def test_port_source_stays_off_the_jax_package(path):
         else:
             names = []
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "tpupt"), (path, name)
+            assert name.split(".")[0] not in ("jax", "jaxlib", "optax", "tpupt"), (path, name)
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             assert not re.fullmatch(r"tpupt(/[\w.\-]+)*/?", node.value), (path, node.value)
+
+
+@pytest.mark.parametrize("package", ["tpupt", "tpupt.diff"])
+def test_port_exports_the_jax_packages_names(package):
+    """Every name the JAX package exports, the port's counterpart exports
+    too (``tpupt.trace_sample``, ``tpupt.diff.fit_scene``)."""
+    import importlib
+
+    jax_mod = importlib.import_module(package)
+    port_mod = importlib.import_module(package.replace("tpupt", "tpupt_torch", 1))
+    missing = [name for name in jax_mod.__all__ if not hasattr(port_mod, name)]
+    assert not missing, missing
+    assert set(jax_mod.__all__) <= set(port_mod.__all__)
 
 
 def test_native_builder_source_lives_in_the_port():

@@ -28,21 +28,30 @@ emissive-mesh triangles, and sends a shadow ray through
 ``intersect.occlusion_anyhit``; an emissive surface that a diffuse bounce
 hits gets the balance heuristic's weight.
 
+Row bands (``row0``, ``rows``) render rows [row0, row0 + rows) of the
+image: the RNG and the camera stay keyed on the global pixel, so a band
+equals the same rows of the whole image.  They are the unit of
+``dist.sharding``, whose differentiable renders all-reduce the scene's
+cotangents over a process group (``grad_psum_axis``) per bounce or once
+(``diff.overlap``).
+
 The JAX package's compaction ladders (forward and differentiable) are
-scheduling only and are left out, and so is its closest-hit shadow test
-for its reference intersectors (which the port does not have): the port's
-shadow rays always take the any-hit test, whose sweep is ``any_hit``.
+scheduling only and are left out.  The shadow rays take the any-hit
+test, whose sweep is ``any_hit``, except under a reference intersector,
+which traces them by its own closest hit (``_closest_hit_shadows``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tpupt_torch.core import camera as cam
 from tpupt_torch.core import vec
 from tpupt_torch.core.types import (
     MAT_DIFFUSE,
     OBJ_MESH,
+    PRIM_NONE,
     PRIM_SPHERE,
     PRIM_TRIANGLE,
     Camera,
@@ -51,6 +60,7 @@ from tpupt_torch.core.types import (
     table_rows,
 )
 from tpupt_torch.core.vec import Vec3
+from tpupt_torch.diff.overlap import psum_in_backward
 from tpupt_torch.render.intersect import (
     background_color,
     intersect_scene_ids,
@@ -71,6 +81,13 @@ from tpupt_torch.scene.bake import rebake_treelets
 from tpupt_torch.utils import debug
 
 MAX_BOUNCES_DEFAULT = 50  # reference max_bounces
+
+
+def _band_pixels(width, rows, row0, device):
+    """Global pixel index of each lane of the band of ``rows`` rows from
+    row ``row0`` (the unit of row sharding), row-major.  The JAX package's
+    tile swizzle is disabled there and left out here."""
+    return row0 * width + torch.arange(width * rows, dtype=torch.int64, device=device)
 
 
 def _fresh_state(scene, camera, width, height, pix, iteration):
@@ -182,11 +199,16 @@ def _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_al
 
 
 @torch.no_grad()
-def _shadow_lit(scene, p, direction, center, radius, shadow_active, lo, any_hit):
-    """Shadow test toward a point sampled on a sphere light: any-hit
-    occlusion of the window [1e-4, distance to the light along the unit
-    direction], with the light itself (object ``lo``: an int, or per lane)
-    excluded."""
+def _shadow_lit(scene, p, direction, center, radius, shadow_active, lo, any_hit, shadow_fn):
+    """Shadow test toward a point sampled on a sphere light (object ``lo``:
+    an int, or per lane): any-hit occlusion of the window [1e-4, distance
+    to the light along the unit direction], the light itself excluded.
+    With ``shadow_fn`` (a reference intersector, see
+    ``_closest_hit_shadows``), whether its closest hit from 1e-4 on is the
+    light; the two agree except at exact-t ties."""
+    if shadow_fn is not None:
+        ids, _ = shadow_fn(scene, p, direction, torch.full_like(p.x, 1e-4), shadow_active)
+        return shadow_active & (ids.obj_id == lo)
     oc = p - center
     b = direction.dot(oc)
     disc = torch.clamp(b * b - (oc.dot(oc) - radius * radius), min=0.0)
@@ -196,30 +218,33 @@ def _shadow_lit(scene, p, direction, center, radius, shadow_active, lo, any_hit)
     return shadow_active & ~occ
 
 
-def _nee_direct_light(scene, hit, throughput, seed, bounce, alive, any_hit):
+def _nee_direct_light(scene, hit, throughput, seed, bounce, alive, any_hit, shadow_fn=None):
     """Next-event estimation from every diffuse hit: the emissive-mesh
     term (``_nee_mesh_light``) plus, for sphere lights, one MIS-weighted
     sample of each (up to ``NEE_UNROLL_MAX``) or of one light per lane
-    (``_nee_sampled_light``)."""
+    (``_nee_sampled_light``).  The shadow rays take ``any_hit``, or the
+    closest hit of ``shadow_fn`` when it is given."""
     mtype, albedo, *_ = _material_rows(scene, hit.mat_id)
     n = hit.normal
     diffuse = alive & hit.mask & (mtype == MAT_DIFFUSE)
     p = hit.point + n * 1e-4  # the scatter's offset
     total = (
-        _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit)
+        _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit,
+                        shadow_fn)
         if scene.s_tri_light_count > 0
         else _zero3(hit.t)
     )
     if len(scene.s_light_objs) > NEE_UNROLL_MAX:
         return total + _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce,
-                                          any_hit)
+                                          any_hit, shadow_fn)
     for li, lo in enumerate(scene.s_light_objs):
         center = Vec3(*scene.nee_center[li].unbind())
         radius = scene.nee_radius[li]
         u1 = uniform(seed, bounce_counter(bounce, 4 + 2 * li))
         u2 = uniform(seed, bounce_counter(bounce, 5 + 2 * li))
         direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
-        lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo, any_hit)
+        lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo, any_hit,
+                          shadow_fn)
         # lambertian f = albedo / pi; with the balance heuristic
         # f * w / pdf = f / (pdf_light + pdf_bsdf)
         p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
@@ -228,7 +253,8 @@ def _nee_direct_light(scene, hit, throughput, seed, bounce, alive, any_hit):
     return total
 
 
-def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit):
+def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit,
+                       shadow_fn):
     """One sphere light per lane, chosen uniformly, its contribution
     weighted by the light count.  The lane's light row [centre, radius,
     emission, object] comes from one ``table_rows`` fetch of an (nl, 8)
@@ -246,14 +272,15 @@ def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, a
     u1 = uniform(seed, bounce_counter(bounce, 5))
     u2 = uniform(seed, bounce_counter(bounce, 6))
     direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
-    lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo_lane, any_hit)
+    lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo_lane, any_hit,
+                      shadow_fn)
     # the technique's pdf is pdf / nl: f * w / (pdf / nl) = f * nl / (pdf + nl * pdf_bsdf)
     p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
     scale = p_b * float(nl) / (pdf + float(nl) * p_b)
     return vec.where(lit, throughput * albedo * scale * emit, _zero3(p_b))
 
 
-def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit):
+def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit, shadow_fn):
     """One point per lane on the emissive-mesh triangles: a triangle
     chosen by area (the CDF inverted by a dense compare-count over the
     <= 512 light triangles), a uniform barycentric point, the lights
@@ -279,8 +306,13 @@ def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_
     valid = diffuse & (cos_l > 1e-6)
     # the window stops short of the sampled triangle, which must not
     # occlude itself; no sphere is this light
-    occ = occlusion_anyhit(scene, p, direction, torch.full_like(dist, 1e-4), dist * (1.0 - 1e-3),
-                           valid, -1, any_hit)
+    t_limit = dist * (1.0 - 1e-3)
+    if shadow_fn is None:
+        occ = occlusion_anyhit(scene, p, direction, torch.full_like(dist, 1e-4), t_limit, valid,
+                               -1, any_hit)
+    else:
+        ids, _ = shadow_fn(scene, p, direction, torch.full_like(dist, 1e-4), valid)
+        occ = (ids.kind != PRIM_NONE) & (ids.t <= t_limit)
     # f * w / pdf_tech with pdf_tech = dist^2 / (cos_l * A), multiplied
     # through by cos_l * A so that a grazing light divides by nothing small
     p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
@@ -290,6 +322,15 @@ def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_
     return vec.where(valid & ~occ, throughput * albedo * scale * emit, _zero3(p_b))
 
 
+def _closest_hit_shadows(intersect_fn) -> bool:
+    """Whether ``intersect_fn`` is a reference intersector
+    (``intersect_scene_ids_bvh``, ``cpu_ref.renderer.intersect_scene_ids_brute``):
+    as in the JAX package, its renders test shadows by its own closest
+    hit, so that they share no shadow sweep with the accelerated render
+    they check."""
+    return getattr(intersect_fn, "closest_hit_shadows", False)
+
+
 def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=False,
                  tri_table=None, any_hit=None):
     """One bounce over all lanes; ``bounce`` is per lane or one int.
@@ -297,16 +338,21 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
     ``use_refine``: ``intersect_fn`` is an ids pass that returns (ids,
     tri_vals) (``intersect_scene_ids_diff``), and the hit is recomputed
     differentiably by ``refine_hit``, with ``tri_table`` as the slot table
-    of the triangle rows.  ``any_hit`` is the shadow rays' mesh sweep
-    (``packets.intersect_treelets_anyhit``)."""
+    of the triangle rows.  An ids pass that returns no second value (the
+    reference intersectors: ``intersect_scene_ids_bvh``, the brute force)
+    leaves the hit to ``refine_hit`` from the ids, forward and
+    differentiably.  ``any_hit`` is the shadow rays' mesh sweep
+    (``packets.intersect_treelets_anyhit``); a reference intersector
+    traces the shadow rays itself (``_closest_hit_shadows``)."""
     alive = state["alive"]
-    if use_refine:
-        ids, tri_vals = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+    ids, extra = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+    if use_refine or extra is None:
+        tri_vals = extra if use_refine else None
         if tri_vals is not None and tri_table is not None:
             tri_vals = dict(tri_vals, table=tri_table)
         hit = refine_hit(scene, state["ro"], state["rd"], state["t_min"], ids, tri_vals)
     else:
-        ids, hit = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
+        hit = extra
     hit_alive = alive & hit.mask
     miss = alive & ~hit.mask
 
@@ -326,8 +372,9 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
     )
     radiance = _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_alive)
     if scene.has_nee:
+        shadow_fn = intersect_fn if _closest_hit_shadows(intersect_fn) else None
         radiance = radiance + _nee_direct_light(scene, hit, state["color"], seed, bounce, alive,
-                                                any_hit)
+                                                any_hit, shadow_fn)
     out = dict(
         ro=vec.where(hit_alive, new_ro, state["ro"]),
         rd=vec.where(hit_alive, new_rd, state["rd"]),
@@ -377,11 +424,11 @@ def accumulate(buffers: RenderBuffers, color, normal, depth) -> RenderBuffers:
 
 
 def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                    start_iteration, intersect_fn, any_hit=None):
-    """Forward render with per-lane sample chaining, one flat loop."""
+                    start_iteration, intersect_fn, any_hit=None, row0=0, rows=None):
+    """Forward render with per-lane sample chaining, one flat loop, over
+    the band of ``rows`` rows from ``row0`` (the whole image by default)."""
     dev = scene.device
-    n = width * height
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = _band_pixels(width, height if rows is None else rows, row0, dev)
     it0 = int(start_iteration)
 
     st, seed = _fresh_state(scene, camera, width, height, pix, it0)
@@ -458,10 +505,23 @@ def _partition_perm(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.zeros_like(lanes).scatter_(0, dest, lanes), count
 
 
+def _any_alive(alive, group=None) -> bool:
+    """Whether a lane is alive: in this band, or with ``group`` in any
+    rank's band (a max all-reduce of the flag)."""
+    flag = alive.any()
+    if group is not None:
+        flag = flag.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
+
+
 def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCES_DEFAULT,
-                 differentiable=False, rr_start=None, intersect_fn=None, any_hit=None):
-    """One sample per pixel.  Returns (color (N, 3), normal (N, 3), depth
-    (N,), traced segments as a 0-dim int64 tensor) in pixel order.
+                 differentiable=False, rr_start=None, intersect_fn=None, any_hit=None, row0=0,
+                 rows=None, grad_psum_axis=None, grad_psum_overlap=True):
+    """One sample per pixel of the band of ``rows`` rows from ``row0``
+    (the whole image by default).  Returns (color (N, 3), normal (N, 3),
+    depth (N,), traced segments as a 0-dim int64 tensor), N = width *
+    rows, in row-major pixel order.
 
     Forward (the default): a flat bounce loop over ``intersect_fn``
     (default ``intersect_scene_ids``), which hands back the hit record.
@@ -472,20 +532,36 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     from the ids of ``intersect_fn`` (default ``intersect_scene_ids_diff``),
     and the outputs are differentiable in the scene's float leaves.  NEE's
     shadow rays trace the same table through ``any_hit``.  Either loop
-    stops early once no lane is alive: a dead lane changes nothing."""
+    stops early once no lane is alive: a dead lane changes nothing.
+
+    ``grad_psum_axis`` (a ``torch.distributed`` process group, or None)
+    with ``differentiable=True`` all-reduces the scene's cotangents over
+    the group in the backward pass, placed as ``grad_psum_overlap`` says:
+    per bounce on the scene and once on the slot table, or once on the
+    scene before the loop (post-hoc); see ``diff.overlap``.  Per bounce,
+    every rank of the group runs as many bounces as the rank whose band
+    lives longest, so that the ranks' collectives pair up."""
+    rows = height if rows is None else rows
     tri_table = None
+    sharded = differentiable and grad_psum_axis is not None
+    per_bounce = sharded and grad_psum_overlap
+    if sharded and not grad_psum_overlap:
+        scene = psum_in_backward(scene, grad_psum_axis)
     if differentiable and any(k == OBJ_MESH for k in scene.s_obj_kind):
         scene = rebake_treelets(scene)
         tri_table = slot_tri_table(scene)
+        if per_bounce:
+            tri_table = psum_in_backward(tri_table, grad_psum_axis)
     fn = intersect_fn or (intersect_scene_ids_diff if differentiable else intersect_scene_ids)
-    pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
+    pix = _band_pixels(width, rows, row0, scene.device)
     state, seed = _fresh_state(scene, camera, width, height, pix, iteration)
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for b in range(max_bounces):
-        if not bool(state["alive"].any()):
+        if not _any_alive(state["alive"], grad_psum_axis if per_bounce else None):
             break
         rays = rays + state["alive"].sum()
-        state = _bounce_body(scene, seed, state, b, rr_start, fn, use_refine=differentiable,
+        s = psum_in_backward(scene, grad_psum_axis) if per_bounce else scene
+        state = _bounce_body(s, seed, state, b, rr_start, fn, use_refine=differentiable,
                              tri_table=tri_table, any_hit=any_hit)
     # paths alive at the bounce cap add their raw throughput
     final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
@@ -493,14 +569,17 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
 
 
 def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                    start_iteration, differentiable, intersect_fn, any_hit=None):
+                    start_iteration, differentiable, intersect_fn, any_hit=None, row0=0,
+                    rows=None, grad_psum_axis=None, grad_psum_overlap=True):
     """``spp`` samples, each a ``trace_sample``, folded by ``accumulate``."""
-    buffers = RenderBuffers.create(width * height, scene.device, int(start_iteration))
+    n = width * (height if rows is None else rows)
+    buffers = RenderBuffers.create(n, scene.device, int(start_iteration))
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for it in range(start_iteration, start_iteration + spp):
         color, normal, depth, r = trace_sample(
             scene, camera, width, height, it, max_bounces, differentiable=differentiable,
-            rr_start=rr_start, intersect_fn=intersect_fn, any_hit=any_hit)
+            rr_start=rr_start, intersect_fn=intersect_fn, any_hit=any_hit, row0=row0, rows=rows,
+            grad_psum_axis=grad_psum_axis, grad_psum_overlap=grad_psum_overlap)
         buffers = accumulate(buffers, color, normal, depth)
         rays = rays + r
     return buffers, rays
@@ -520,6 +599,10 @@ def render_image(
     chain_samples: bool = True,
     device=None,
     any_hit=None,
+    row0: int = 0,
+    rows: int | None = None,
+    grad_psum_axis=None,
+    grad_psum_overlap: bool = True,
 ):
     """Render ``spp`` progressive samples on ``device`` (default: the
     scene's).  Returns (RenderBuffers, total traced segments as a 0-dim
@@ -533,18 +616,29 @@ def render_image(
     amplified-ulp tolerance).  ``intersect_fn`` is the hit pass: by default
     ``intersect_scene_ids`` forward and ``intersect_scene_ids_diff`` when
     differentiable (the twin: either with ``closest_hit=
-    sweep_kernel.treelet_closest_hit_plain`` bound).  ``any_hit`` is the
-    mesh sweep of NEE's shadow rays, ``sweep_kernel.treelet_any_hit`` by
-    default (the twin: ``treelet_any_hit_plain``)."""
+    sweep_kernel.treelet_closest_hit_plain`` bound; the reference
+    intersectors ``intersect_scene_ids_bvh`` and
+    ``cpu_ref.renderer.intersect_scene_ids_brute`` serve both modes).
+    ``any_hit`` is the mesh sweep of NEE's shadow rays,
+    ``sweep_kernel.treelet_any_hit`` by default (the twin:
+    ``treelet_any_hit_plain``).
+
+    ``row0``/``rows`` render the band of ``rows`` rows from ``row0`` (the
+    buffers hold width * rows pixels); ``grad_psum_axis`` and
+    ``grad_psum_overlap`` are ``trace_sample``'s."""
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
+    band = dict(row0=row0, rows=rows)
     if differentiable:
         return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, True, intersect_fn, any_hit)
+                               start_iteration, True, intersect_fn, any_hit, **band,
+                               grad_psum_axis=grad_psum_axis,
+                               grad_psum_overlap=grad_psum_overlap)
     with torch.no_grad():
         if not chain_samples:
             return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                                   start_iteration, False, intersect_fn, any_hit)
+                                   start_iteration, False, intersect_fn, any_hit, **band)
         return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, intersect_fn or intersect_scene_ids, any_hit)
+                               start_iteration, intersect_fn or intersect_scene_ids, any_hit,
+                               **band)

@@ -18,6 +18,10 @@ The differentiable renderer splits a hit in two:
      ``_FetchTriRows``, whose backward scatters their cotangent into the
      slot-ordered table ``slot_tri_table`` (one ``index_add_``).
 
+``intersect_scene_ids_bvh`` is the reference ids pass: the per-ray BVH
+walk of ``accel/traverse.py``, whose hits ``refine_hit`` recomputes from
+the triangle ids (forward and differentiably).
+
 Visibility is treated as locally constant, as in the JAX package.  Rows
 of the small per-sphere and per-material tables are read through
 ``types.table_rows``, whose backward pass is a dense reduction over the
@@ -29,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel.packets import _DIFF_KEYS, intersect_treelets, intersect_treelets_anyhit
+from tpupt_torch.accel.traverse import traverse_mesh
 from tpupt_torch.core import vec
 from tpupt_torch.core.types import (
     Hit,
@@ -209,6 +214,39 @@ def intersect_scene_ids_diff(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, acti
 
 
 @torch.no_grad()
+def intersect_scene_ids_bvh(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active):
+    """The per-ray stackless-BVH closest hit (``accel.traverse``): the
+    semantic reference of the treelet sweep, sharing neither its code nor
+    its visit order.  Returns (ids, None): no forward hit, the integrator
+    refines the hit from the ids.  Plug into the integrator via
+    ``intersect_fn``."""
+    n = ro.x.shape[0]
+    t_best, kind, obj_id, prim_id = _blank_ids(n, ro.x.device)
+    t_best, kind, obj_id, prim_id, *_ = _sphere_pass(
+        scene, ro, rd, t_min, active, t_best, kind, obj_id, prim_id
+    )
+    ro_a, rd_a = ro.to_array(), rd.to_array()
+    for o, (okind, oprim) in enumerate(zip(scene.s_obj_kind, scene.s_obj_prim)):
+        if okind != OBJ_MESH:
+            continue
+        t_new, tri_local, _ = traverse_mesh(
+            scene, scene.s_mesh_root[oprim], scene.obj_m[o], scene.obj_inv_m[o], ro_a, rd_a,
+            t_min, t_best, torch.full_like(prim_id, -1), active,
+        )
+        take = tri_local >= 0
+        t_best = torch.where(take, t_new, t_best)
+        kind = torch.where(take, PRIM_TRIANGLE, kind)
+        obj_id = torch.where(take, o, obj_id)
+        prim_id = torch.where(take, tri_local, prim_id)
+    return HitIds(kind=kind, obj_id=obj_id, prim_id=prim_id, t=t_best), None
+
+
+# a reference intersector: renders through it trace their shadow rays by
+# its closest hit (integrator._closest_hit_shadows)
+intersect_scene_ids_bvh.closest_hit_shadows = True
+
+
+@torch.no_grad()
 def occlusion_anyhit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, active,
                      exclude_obj, any_hit=None):
     """The shadow test: True where some geometry other than sphere object
@@ -273,7 +311,8 @@ def refine_hit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, ids: HitIds,
     """Differentiable closed-form recomputation of the winning hit, as the
     JAX package's ``refine_hit``.  ``tri_vals`` is the ids pass's payload,
     optionally with "table" = ``slot_tri_table(scene)`` built once by the
-    caller; a scene with meshes needs it.
+    caller; without it a triangle comes from ``ids.prim_id`` (the global
+    triangle) and ``ids.obj_id``.
 
     Both branches run on every lane and ``ids.kind`` selects, so the
     unselected one must stay finite: the sphere root takes
@@ -311,14 +350,25 @@ def refine_hit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, ids: HitIds,
     sp_normal = vec.transform_normal(inv_m, vec.where(sp_front, sp_outward, -sp_outward))
 
     # --- triangle branch -----------------------------------------------
-    if _has_mesh(scene):
-        if tri_vals is None:
-            raise ValueError("refine_hit: a scene with meshes needs the ids pass's tri_vals")
+    if _has_mesh(scene) and tri_vals is not None:
         wtable = tri_vals.get("table")
         if wtable is None:
             wtable = slot_tri_table(scene)
         f = _FetchTriRows.apply(wtable, tri_vals["slot"], *(tri_vals[k] for k in _DIFF_KEYS))
         p0, e1, e2 = Vec3(*f[0:3]), Vec3(*f[3:6]), Vec3(*f[6:9])
+    elif _has_mesh(scene):
+        # from the ids alone (the reference intersectors): the global
+        # triangle's vertices through its object's matrix, the same
+        # arithmetic as the slot table's rows
+        t_prim = torch.where(ids.kind == PRIM_TRIANGLE, safe_prim, 0)
+        tri = scene.tri_idx.long()[t_prim]
+
+        def corner(c):
+            p = scene.positions.index_select(0, tri[:, c])
+            return vec.transform_point(m, Vec3(*p.unbind(1)))
+
+        p0 = corner(0)
+        e1, e2 = corner(1) - p0, corner(2) - p0
     else:
         zf = torch.zeros((n,), device=dev)
         p0, e1, e2 = Vec3(zf, zf, zf), Vec3(zf, zf + 1.0, zf), Vec3(zf, zf, zf + 1.0)
