@@ -4,8 +4,9 @@ twin at the main path's shapes, renders the bunny scene at full size and
 checks the result, then takes the gradient of a full-size differentiable
 render with respect to every scene parameter, holds it against the twin's
 at 256^2 and runs the denoiser's backward pass.  Then next-event
-estimation: the any-hit shadow kernel against its twin (and both forms of
-the closest-hit kernel on the area-light scene's own rays), the two Cornell
+estimation: the any-hit shadow kernels against their twin on sparse,
+mixed and dense packets (and both forms of the closest-hit kernel on the
+area-light scene's own rays), the two Cornell
 scenes rendered at BASELINE config 2's size (held against the twins at
 128^2), and a fwd+bwd step on the area-light Cornell box.  Then the user's
 surfaces: the progressive engine (``PathTracer``) on the bunny render, its
@@ -20,7 +21,9 @@ bit-equal), the fit's loss and gradients held against the twins' at
 sharded render and gradients on a one-rank NCCL group and on two gloo
 processes sharing the card; and the reference oracles (the per-ray BVH
 walk, the brute force) against the sweep's hits, on bunny.json and on
-ajax-white-hi.json's 327,680 triangles, and the brute-force render,
+ajax-white-hi.json's 327,680 triangles, the any-hit kernels' occlusion on
+that scene's shadow rays against the twin and the BVH walk, and the
+brute-force render,
 which traces its shadow rays itself, against the render on bunny.json
 and cornell_area.json.
 
@@ -42,6 +45,8 @@ it fails before printing any result.  Its standard output ends with:
   * {"ok": true, "device": {...}} as the last line.
 """
 
+import concurrent.futures
+import ctypes
 import dataclasses
 import functools
 import json
@@ -215,8 +220,18 @@ print(f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
 # --- 1 -------------------------------------------------------------------
 phase("1 build")
 t0 = time.perf_counter()
+# the library with the walk kernels' per-packet stamps (-DTPUPT_SWEEP_PROFILE),
+# built beside the plain one: phase 9 reads from its stamps which route
+# walked each packet
+builds = concurrent.futures.ThreadPoolExecutor(1)
+profile_build = builds.submit(kernels.build, ["-DTPUPT_SWEEP_PROFILE"])
 kernels.load()
-print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {kernels.library_path()}")
+profile_lib = kernels.bind(profile_build.result())
+builds.shutdown()
+profile_lib.tpupt_sweep_profile_buffer.restype = ctypes.c_int
+profile_lib.tpupt_sweep_profile_buffer.argtypes = [ctypes.c_void_p]
+print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {kernels.library_path()}, "
+      f"and the profile build")
 with open(kernels.library_path() + ".log") as fh:
     print("".join(ln for ln in fh if "registers" in ln or "Compiling" in ln).rstrip())
 
@@ -264,7 +279,17 @@ ws_plain_ms = cuda_ms(lambda: step_kernel.winner_step_plain(rows, comps, live, s
 ws_bound_ms, ws_bound_by = bound(
     sz * p * rl * MT_FLOPS, 4 * (sz * p * (8 + 6) + sz * rl * (13 + 2)))
 print(f"equal on all 6 channels ({n_hit} hit lanes); kernel {ws_ms:.4f} ms, twin {ws_plain_ms:.4f} ms; "
-      f"bound {ws_bound_ms:.4f} ms ({ws_bound_by}), {ws_bound_ms / ws_ms:.1%} of it")
+      f"bound {ws_bound_ms:.4f} ms ({ws_bound_by}), {ws_bound_ms / ws_ms:.1%} of it  [{smi}]")
+# the reciprocal winner_step and the any-hit walk use in place of the
+# division, against `1.0f / a` on all 2^32 floats
+rcp_by_exp = torch.zeros(257, dtype=torch.int64, device=DEV)
+kernels.check(kernels.load(), kernels.load().tpupt_rcp_check(rcp_by_exp.data_ptr(),
+                                                             kernels.stream_of(rcp_by_exp)),
+              "rcp_check")
+rcp_declined = [i for i, v in enumerate(rcp_by_exp[:256].tolist()) if v]
+assert int(rcp_by_exp[256]) == 0, f"the fast reciprocal differs from the division: {rcp_by_exp}"
+print(f"fast reciprocal: equal to 1.0f / a on every float it takes; it leaves biased exponents "
+      f"{rcp_declined} (where it would differ) to the division")
 
 # --- 3 -------------------------------------------------------------------
 phase("3 treelet_closest_hit vs twin on bunny.json, 1024^2")
@@ -630,14 +655,64 @@ print(f"render + denoise + backward {dn_wall:.3f} s wall (the step without the d
       f"albedo grad max {float(dn_grads['materials.albedo'].abs().max()):.4g}")
 
 # --- 9 -------------------------------------------------------------------
-phase("9 treelet_any_hit vs twin: shadow rays on bunny.json (1024^2 secondaries' hits) and "
-      "cornell_area.json (512^2, first bounce); that bounce's treelet_closest_hit rows, both forms")
+phase("9 treelet_any_hit vs twin: shadow rays on bunny.json (1024^2 secondaries' hits; 1024^2 "
+      "primaries' mesh hits, mixed) and cornell_area.json (512^2, first bounce); that bounce's "
+      "treelet_closest_hit rows, both forms")
+
+
+def device_ms(fn, name, calls=10):
+    """Device milliseconds per call of the kernels whose names hold
+    ``name`` (torch.profiler), summed over them: the device time of a call
+    without the host's issue; None where the profiler recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+    return total / 1e3 / calls if total > 0 else None
+
+
+def shadow_rows(hit, mask, light):
+    """Packed shadow rays from ``hit``'s points, offset along the normal,
+    toward the point ``light``, on the lanes of ``mask``; the window ends
+    short of the light.  Also returns the flat rays (ro, rd, t_min,
+    t_limit)."""
+    p = hit.point + hit.normal * 1e-4
+    to = Vec3(*(torch.full_like(p.x, v) for v in light)) - p
+    dist = to.length()
+    flat = (p, to * (1.0 / dist), torch.full_like(dist, 1e-4), 0.999 * dist)
+    return (*packets._pack_rows(*flat, mask), flat)
+
+
+def any_hit_routes(args, want):
+    """(packets one warp walked, packets a CTA walked) among those with a
+    live lane, in one call of the profile build (stamp 4's bit 32 marks
+    a warp's packet), whose occlusion must equal ``want``."""
+    act_p = args[1]
+    stamps = torch.zeros((act_p.shape[0], 6), dtype=torch.int64, device=DEV)
+    kernels.check(profile_lib, profile_lib.tpupt_sweep_profile_buffer(stamps.data_ptr()), "profile")
+    load, kernels.load = kernels.load, lambda: profile_lib
+    try:
+        got = sweep_kernel.treelet_any_hit(*args)
+        torch.cuda.synchronize()
+    finally:
+        kernels.load = load
+        kernels.check(profile_lib, profile_lib.tpupt_sweep_profile_buffer(None), "profile")
+    require_equal("treelet_any_hit, profile build", (got,), (want,))
+    busy = act_p.any(dim=1)
+    by_warp = (stamps[:, 4] >> 32) == 1
+    assert bool((stamps[busy, 3] > 0).all()), "a packet with a live lane left no stamp"
+    return int((busy & by_warp).sum()), int((busy & ~by_warp).sum())
 
 
 def compare_any_hit(label, scn, rows, act_p):
-    """The any-hit kernel against its twin on one packed batch (every
-    lane's occlusion equal); the work the twin counts, the bound and the
-    times."""
+    """The any-hit kernels against their twin on one packed batch (every
+    lane's occlusion equal); the work the twin counts, the packets each
+    route walked (read from the profile build's stamps), the bound, the
+    time of a call (CUDA events over the wrapper) and the kernels' device
+    time (torch.profiler)."""
     k9, l9 = scn.tre_min.shape[0], scn.s_leaf_size
     args = (rows, act_p, scn.tre_min, scn.tre_max, scn.tre_tris, l9)
     out_k = sweep_kernel.treelet_any_hit(*args)
@@ -646,7 +721,10 @@ def compare_any_hit(label, scn, rows, act_p):
     torch.cuda.synchronize()
     require_equal(f"treelet_any_hit {label}", (out_k,), (out_p,))
     ms = cuda_ms(lambda: sweep_kernel.treelet_any_hit(*args), 20)
+    dev_ms = device_ms(lambda: sweep_kernel.treelet_any_hit(*args), "treelet_any_hit")
     plain_ms = cuda_ms(lambda: sweep_kernel.treelet_any_hit_plain(*args), 2)
+    warp, block = any_hit_routes(args, out_p)
+    smem = kernels.load().tpupt_any_hit_smem_bytes(k9, l9)
     lanes = act_p.numel()
     flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
     # each input read once (act per lane, 8 f32 rows per live lane, boxes
@@ -656,26 +734,41 @@ def compare_any_hit(label, scn, rows, act_p):
     occluded = int(out_k.sum())
     print(f"{label}: K={k9}; {work['live_lanes']} live lanes in {lanes // packets.PACKET} packets, "
           f"{occluded} occluded; every lane equal to the twin")
+    print(f"  routes (the profile build's stamps): {warp} packets walked by one warp each, "
+          f"{block} by a CTA; shared memory {smem} B (the largest launch)")
     print(f"  work: {work['supers_hit']} supers hit, {work['slab_tests']} slab tests, "
           f"{work['visits']} treelet visits (at most {work['visits_max']} in a packet), "
           f"{work['mt_pairs']} MT pairs of unoccluded lanes = {flops / 1e9:.4f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB")
-    print(f"  kernel {ms:.4f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of it  [{smi}]")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
-                occluded=occluded, work=work, gflop=flops / 1e9, treelets=k9)
+    dev = (f"the kernels' device time {dev_ms:.4f} ms" if dev_ms else
+           "the kernels' device time not measured (the profiler recorded none)")
+    print(f"  call {ms:.4f} ms, {dev}, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of the call" + (f", {bound_ms / dev_ms:.1%} of the device time"
+                                                if dev_ms else "") + f"  [{smi}]")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=0.0, occluded=occluded, work=work, gflop=flops / 1e9, treelets=k9,
+                warp_route_packets=warp, block_route_packets=block, smem_bytes=smem)
 
 
 # bunny.json: the hits of phase 3's secondaries, offset along the normal,
-# toward a fixed point above the scene
+# toward a fixed point above the scene: sparse packets
+BUNNY_LIGHT = (0.0, 4.0, -1.5)
 with torch.no_grad():
     _ids1, hit1 = intersect.intersect_scene_ids(scene, ro2, rd2, tmin2, hit0.mask)
-    p_sh = hit1.point + hit1.normal * 1e-4
-    to_sky = Vec3(*(torch.full_like(p_sh.x, v) for v in (0.0, 4.0, -1.5))) - p_sh
-    dist = to_sky.length()
-    rows_sh, act_sh = packets._pack_rows(p_sh, to_sky * (1.0 / dist), torch.full_like(dist, 1e-4),
-                                         0.999 * dist, hit1.mask)
+    rows_sh, act_sh, _ = shadow_rows(hit1, hit1.mask, BUNNY_LIGHT)
 shadow_bunny = compare_any_hit("bunny.json shadow rays", scene, rows_sh, act_sh)
+# mixed: from the mesh hits of phase 3's pixel-centre primaries toward the
+# same point, packets dense over the bunnies and empty elsewhere, so both
+# routes run in one call
+with torch.no_grad():
+    ids_m, hit_m = intersect.intersect_scene_ids(scene, ro, rd, t_min, all_lanes)
+    rows_mx, act_mx, _ = shadow_rows(hit_m, hit_m.mask & (ids_m.kind == intersect.PRIM_TRIANGLE),
+                                     BUNNY_LIGHT)
+shadow_mixed = compare_any_hit("bunny.json mixed shadow rays (the 1024^2 primaries' mesh hits)",
+                               scene, rows_mx, act_mx)
+assert shadow_mixed["warp_route_packets"] > 0 and shadow_mixed["block_route_packets"] > 0, \
+    shadow_mixed
+del rows_mx, act_mx, ids_m, hit_m
 
 # cornell_area.json: the rows the first bounce of the render hands the
 # any-hit kernel (its only light is the quad, so one call) and the
@@ -783,10 +876,10 @@ kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
 with open(os.path.join(OUT, "cornell_area_render_profile.txt"), "w") as fh:
     fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
 area_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-area_any_ms = sum(e.self_device_time_total for e in kern if "treelet_any_hit_kernel" in e.key) / 1e3
+area_any_ms = sum(e.self_device_time_total for e in kern if "treelet_any_hit" in e.key) / 1e3
 print(f"profiled cornell_area render: device busy {area_busy_ms:.1f} ms = "
       f"{area_busy_ms / 1e3 / nee_fwd['cornell_area.json']['wall_s']:.1%} of the median wall; "
-      f"treelet_any_hit_kernel {area_any_ms:.2f} ms; {sum(e.count for e in kern)} kernels"
+      f"the any-hit kernels {area_any_ms:.2f} ms; {sum(e.count for e in kern)} kernels"
       if area_busy_ms > 0 else "profiled render: the profiler recorded no device time (not measured)")
 nee_fwd["cornell_area.json"].update(profiled_device_busy_ms=area_busy_ms,
                                     profiled_any_hit_ms=area_any_ms)
@@ -1408,7 +1501,8 @@ print(f"two gloo ranks on the card, {b2}^2: the gathered render equals one proce
       f"process's; walls (s) {two_info}  [{smi}]")
 
 # --- 17 ------------------------------------------------------------------
-phase("17 the oracles: treelet_closest_hit's hits against the BVH walk and the brute force")
+phase("17 the oracles: treelet_closest_hit's hits against the BVH walk and the brute force; "
+      "treelet_any_hit at K = 14,782 against its twin and the BVH walk")
 GEOM = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -1507,7 +1601,30 @@ with torch.no_grad():
                                         act_h)
 hi_sweep = compare_sweep(f"ajax-white-hi.json {ORC}^2 primaries", scene_hi, rows_h, actp_h)
 hi_sweep.update(smem_bytes=hi_smem, triangles=int(scene_hi.tri_idx.shape[0]))
-del scene_hi, rows_h, actp_h
+# the any-hit kernels' first run at this K: shadow rays from the
+# primaries' hits toward a point above the bust, where the light is on the
+# hit's side of the surface
+HI_LIGHT = (0.0, 9.0, 0.0)
+with torch.no_grad():
+    _ids_hh, hit_hh = intersect.intersect_scene_ids(scene_hi, ro_h, rd_h, tmin_h, act_h)
+    to_light = Vec3(*(torch.full_like(hit_hh.point.x, v) for v in HI_LIGHT)) - hit_hh.point
+    lit_side = hit_hh.mask & (hit_hh.normal.dot(to_light) > 0)
+    rows_hs, actp_hs, (p_hs, d_hs, tmin_hs, tlim_hs) = shadow_rows(hit_hh, lit_side, HI_LIGHT)
+hi_any = compare_any_hit(f"ajax-white-hi.json shadow rays ({ORC}^2 primaries' hits)", scene_hi,
+                         rows_hs, actp_hs)
+# against the BVH walk: occluded iff its closest hit lies in [t_min, t_limit]
+with torch.no_grad():
+    occ_hk = packets.intersect_treelets_anyhit(scene_hi, p_hs, d_hs, tmin_hs, tlim_hs, lit_side)
+    (ids_hb, _), hi_bvh_s = timed(lambda: intersect.intersect_scene_ids_bvh(
+        scene_hi, p_hs, d_hs, tmin_hs, lit_side))
+    occ_hb = lit_side & (ids_hb.kind >= 0) & (ids_hb.t <= tlim_hs)
+bad = occ_hk != occ_hb
+assert not bool(bad.any()), (f"ajax-white-hi.json: {int(bad.sum())} lanes' occlusion differs from "
+                             f"the BVH walk's; t there {ids_hb.t[bad][:8].tolist()}")
+hi_any.update(bvh_equal_lanes=int(lit_side.sum()), bvh_occluded=int(occ_hb.sum()))
+print(f"  equal to the BVH walk's occlusion on all {int(lit_side.sum())} lanes "
+      f"({int(occ_hb.sum())} occluded; the walk {hi_bvh_s:.2f} s)")
+del scene_hi, rows_h, actp_h, rows_hs, actp_hs
 
 # --- report ----------------------------------------------------------------
 
@@ -1555,18 +1672,21 @@ report = {
                 "cornell_area_bounce0": pay_area},
     ), dict(
         # not Pallas in the JAX package (XLA intersect_treelets_anyhit); the
-        # top-level times are the cornell_area bounce-0 shadow rays'
+        # top-level times are the cornell_area bounce-0 shadow rays'; a call
+        # is two launches (the warp and block routes), counted once
         name="treelet_any_hit", route="cuda",
         source="tpupt_torch/accel/csrc/treelet_kernels.cu",
         replaces="tpupt/accel/packets.py:961",
         launches=area_launches["treelet_any_hit"],
-        max_abs_err=max(shadow_bunny["max_abs_err"], shadow_area["max_abs_err"]),
+        max_abs_err=max(r["max_abs_err"] for r in (shadow_bunny, shadow_mixed, shadow_area, hi_any)),
         ms=shadow_area["ms"], plain_ms=shadow_area["plain_ms"], bound_ms=shadow_area["bound_ms"],
         bound_by=shadow_area["bound_by"], library_ms=None,
         cli_launches={k: v["launches"]["treelet_any_hit"] for k, v in cli.items()},
         fit_step_launches=fit_per_step["treelet_any_hit"],
         band_launches=band_launches("treelet_any_hit"),
-        inputs={"bunny_shadow": shadow_bunny, "cornell_area_bounce0": shadow_area},
+        device_ms=shadow_area["device_ms"],
+        inputs={"bunny_shadow": shadow_bunny, "bunny_mixed_shadow": shadow_mixed,
+                "cornell_area_bounce0": shadow_area, "ajax_white_hi_shadow": hi_any},
     )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
@@ -1578,6 +1698,7 @@ report = {
         max_abs_err=float((out_k[0] - out_p[0]).abs().max()), ms=ws_ms, plain_ms=ws_plain_ms,
         bound_ms=ws_bound_ms, bound_by=ws_bound_by, library_ms=None,
         fit_step_launches=fit_per_step["winner_step"], band_launches=band_launches("winner_step"),
+        rcp_declined_exponents=rcp_declined,
     )],
     "render": dict(rays=rays, wall_s=wall, walls_s=walls, mrays_per_s=rays / wall / 1e6,
                    first_call_s=first_s, profiled_device_busy_ms=busy_ms,

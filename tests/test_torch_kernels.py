@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpupt_torch.accel import packets, step_kernel, sweep_kernel
+from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel
 from tpupt_torch.core import math3d as m3
 from tpupt_torch.core.camera import generate_rays, make_camera, pixel_centers
 from tpupt_torch.core.vec import Vec3
@@ -319,6 +319,64 @@ def test_treelet_any_hit_kernel_equals_twin(lex, window, cuda_device):
     assert 0 < int(occ_k.sum()) < int(active.sum()) and not bool(occ_k[~active].any())
 
 
+@pytest.fixture(scope="module")
+def grid640():
+    """The tie grid at 40 instances: K = 640 > 512, where every packet
+    takes the any-hit block route."""
+    return tie_grid_scene(40)
+
+
+# live lanes per packet, by packet (cycled): the any-hit kernels' routes
+# (<= 32 live lanes: one warp; more: a CTA), the ray-to-thread ways (8 at
+# <= 4 rays a warp or <= 32 a CTA, ..., 1) and one call mixing them
+ANY_HIT_LIVE = {
+    "0": (0,), "1": (1,), "2": (2,), "5": (5,), "13": (13,), "32": (32,), "33": (33,),
+    "64": (64,), "65": (65,), "129": (129,), "256": (256,), "mixed": (0, 13, 200, 32, 33, 1),
+}
+
+
+def _any_hit_inputs(scene_name, live, device):
+    """Shadow-ray inputs on a scene with per-packet live counts ``live``:
+    the tie grid's vertical rays with window ends in [0.5, 1.5] around
+    the plane at t = 1; elsewhere _rays(32) with ends in [0.5, 6]."""
+    if scene_name == "grid640":
+        ro, rd, t_min, _, _ = tie_grid_rays(device)
+        lo, hi = 0.5, 1.5
+    else:
+        ro, rd, t_min, _, _ = _rays(32, device)
+        lo, hi = 0.5, 6.0
+    n = ro.x.shape[0]
+    r = np.random.default_rng(sum(live))
+    t_limit = torch.from_numpy(r.uniform(lo, hi, n).astype(np.float32)).to(device)
+    act = np.zeros(n, bool)
+    for i, p0 in enumerate(range(0, n, 256)):
+        m = min(256, n - p0)
+        act[p0 + r.choice(m, min(live[i % len(live)], m), replace=False)] = True
+    return ro, rd, t_min, t_limit, torch.from_numpy(act).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", list(ANY_HIT_LIVE))
+@pytest.mark.parametrize("scene_name", ["ico", "big", "grid640"])
+def test_any_hit_kernel_equals_twin_by_live_lanes(request, scene_name, live, cuda_device):
+    """The walk kernel alone (K < 96), the warp route and the block route
+    (96 <= K <= 512) and the block route alone (K = 640), at every live count where
+    the route or the threads a ray takes change: every lane's occlusion
+    equal to the twin's, one call counted."""
+    scene = request.getfixturevalue(scene_name).to(cuda_device)
+    ro, rd, t_min, t_limit, active = _any_hit_inputs(scene_name, ANY_HIT_LIVE[live], cuda_device)
+    before = sweep_kernel.treelet_any_hit.launches
+    occ_k = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active)
+    occ_p = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active,
+                                              any_hit=sweep_kernel.treelet_any_hit_plain)
+    torch.cuda.synchronize()
+    assert sweep_kernel.treelet_any_hit.launches == before + 1
+    assert occ_k.dtype == torch.bool and torch.equal(occ_k, occ_p)
+    assert not bool(occ_k[~active].any())
+    if int(active.sum()) >= 100:
+        assert 0 < int(occ_k.sum()) < int(active.sum())
+
+
 @pytest.mark.cuda
 def test_nee_render_kernel_equals_twin(cuda_device):
     """A mesh, an emissive quad and a sphere lamp: the forward render
@@ -380,6 +438,63 @@ def test_winner_step_kernel_equals_twin(ico, cuda_device):
     for a, b in zip(out_k, out_p):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int((out_k[0] < 3.0e38).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz,p,rl,offset", [
+    (3, 256, 61, 0),    # rl not a multiple of 4, fewer rows than the grid holds
+    (5, 100, 7, 0),     # a row narrower than a CTA's threads
+    (2, 1024, 36, 0),   # four passes of a CTA over a row
+    (1, 300, 1, 0),     # one pair
+    (700, 64, 32, 0),   # more rows than CTAs: every CTA strides, both stages
+    (4, 256, 64, 1),    # rl % 4 == 0 but comps not 16-byte aligned: scalar copies
+])
+def test_winner_step_kernel_equals_twin_shapes(ico, sz, p, rl, offset, cuda_device):
+    """winner_step at shapes off its float4 path and off a full grid: all
+    six outputs equal to the twin's, earliest pair winning exact-t ties
+    (each row repeats its first pairs at its end)."""
+    r = np.random.default_rng(sz * 1000 + rl)
+    K, L = ico.tre_min.shape[0], 32
+    o = r.uniform(-2, 2, (sz, p, 3)).astype(np.float32)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True)
+    dev = cuda_device
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    rows = dict(rox=f(o[..., 0]), roy=f(o[..., 1]), roz=f(o[..., 2]),
+                rdx=f(d[..., 0]), rdy=f(d[..., 1]), rdz=f(d[..., 2]),
+                tmin=f(np.full((sz, p), 1e-3)),
+                t=f(np.where(r.random((sz, p)) < 0.3, 2.0, 3.0e38)))
+    slot_ids = r.integers(0, K * L, (sz, rl))
+    slot_ids[:, rl - min(rl, 4) // 2:] = slot_ids[:, :min(rl, 4) // 2]  # duplicates: exact ties
+    blocks = ico.tre_tris.view(K, 13, L)
+    comps = blocks[torch.from_numpy(slot_ids // L), :, torch.from_numpy(slot_ids % L)]
+    comps = comps.permute(0, 2, 1)  # (sz, 13, rl)
+    flat = torch.empty(comps.numel() + offset, device=dev)
+    comps_d = flat[offset:].view(sz, 13, rl)
+    comps_d.copy_(comps)
+    slots = torch.from_numpy(slot_ids).int().to(dev)
+    live = f(r.random((sz, rl)) < 0.9)
+    before = step_kernel.winner_step.launches
+    out_k = step_kernel.winner_step(rows, comps_d, live, slots)
+    out_p = step_kernel.winner_step_plain(rows, comps_d, live, slots)
+    torch.cuda.synchronize()
+    assert step_kernel.winner_step.launches == before + 1
+    for a, b in zip(out_k, out_p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if rl >= 32:
+        assert int((out_k[0] < 3.0e38).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fast_reciprocal_equals_division_on_every_float(cuda_device):
+    """The any-hit walk's and winner_step's reciprocal (one Newton step
+    from the hardware's approximation, the division where it declines)
+    against `1.0f / a` on all 2^32 float bit patterns: equal wherever it
+    is used, so those kernels stay bit-equal to their twins."""
+    lib = kernels.load()
+    by_exp = torch.zeros(257, dtype=torch.int64, device=cuda_device)
+    kernels.check(lib, lib.tpupt_rcp_check(by_exp.data_ptr(), kernels.stream_of(by_exp)),
+                  "rcp_check")
+    assert int(by_exp[256]) == 0, by_exp.nonzero().flatten().tolist()
 
 
 @pytest.mark.cuda

@@ -87,12 +87,18 @@ def bind(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     lib.tpupt_treelet_smem_bytes.restype = ctypes.c_size_t
     lib.tpupt_treelet_smem_bytes.argtypes = [_I, _I]
+    lib.tpupt_any_hit_smem_bytes.restype = ctypes.c_size_t
+    lib.tpupt_any_hit_smem_bytes.argtypes = [_I, _I]
+    lib.tpupt_winner_step_smem_bytes.restype = ctypes.c_size_t
+    lib.tpupt_winner_step_smem_bytes.argtypes = [_I]
     lib.tpupt_treelet_closest_hit.restype = _I
     lib.tpupt_treelet_closest_hit.argtypes = [_P] * 12 + [_I, _I, _I] + [_P] * 8
     lib.tpupt_treelet_any_hit.restype = _I
     lib.tpupt_treelet_any_hit.argtypes = [_P] * 12 + [_I, _I, _I] + [_P] * 2
     lib.tpupt_winner_step.restype = _I
     lib.tpupt_winner_step.argtypes = [_P] * 11 + [_I, _I, _I] + [_P] * 7
+    lib.tpupt_rcp_check.restype = _I
+    lib.tpupt_rcp_check.argtypes = [_P, _P]
     lib.tpupt_cuda_error_string.restype = ctypes.c_char_p
     lib.tpupt_cuda_error_string.argtypes = [_I]
     return lib

@@ -3,10 +3,12 @@
 
 ``winner_step`` launches the CUDA kernel ``winner_step_kernel``
 (``csrc/treelet_kernels.cu``), which replaces the Pallas ``_step_kernel``:
-one block per packet row, the row's 13 x RL pair components staged in
-shared memory, and each thread folding its ray over the RL pairs with the
-MT-and-fold routine that the closest-hit sweep also runs.  For CPU
-tensors it runs ``winner_step_plain``.
+a grid of as many 128-thread CTAs as fit on the card strides over the
+rows, copying the next row's 13 x RL pair components, live flags and
+slots into shared memory (cp.async, double-buffered) while it folds the
+current one, two rays per thread, with the MT routine that the
+closest-hit sweep also runs.  For CPU tensors it runs
+``winner_step_plain``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def winner_step(rows, comps, live, slots):
     sz, p = rows["rox"].shape
     rl = comps.shape[2]
     req(0 < p <= 1024, f"winner_step: row width {p} not in (0, 1024]")
+    req(rl >= 1, "winner_step: a row needs at least one pair")
     req(tuple(comps.shape) == (sz, 13, rl), f"winner_step: comps {tuple(comps.shape)}")
     req(tuple(live.shape) == (sz, rl) and tuple(slots.shape) == (sz, rl),
         "winner_step: live/slots must be (sz, RL)")
@@ -56,6 +59,9 @@ def winner_step(rows, comps, live, slots):
         "winner_step: float32 rows/comps/live and int32 slots required")
 
     lib = kernels.load()
+    smem = lib.tpupt_winner_step_smem_bytes(rl)
+    limit = torch.cuda.get_device_properties(comps.device).shared_memory_per_block_optin
+    req(smem <= limit, f"winner_step: {rl} pairs a row need {smem} B of shared memory > {limit}")
     out = [torch.empty((sz, p), dtype=dt, device=comps.device)
            for dt in (torch.float32, torch.int32) + (torch.float32,) * 4]
     if sz:

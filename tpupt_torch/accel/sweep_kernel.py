@@ -13,11 +13,17 @@ triangle p0, e1, e2, read from its block row by slot after the walk.  For
 CPU tensors it runs ``treelet_closest_hit_plain``, the lockstep loop
 described below.
 
-``treelet_any_hit`` launches the same kernel's any-hit mode for shadow
-rays, which replaces the JAX package's XLA ``intersect_treelets_anyhit``:
-the same cull, sort and block ring, and a walk in which each thread stops
-at its ray's first hit inside the window and an occluded ray drops out of
-the packet's exit test.  Its twin is ``treelet_any_hit_plain``.
+``treelet_any_hit`` launches the any-hit kernels for shadow rays, which
+replace the JAX package's XLA ``intersect_treelets_anyhit``: the same
+cull, sort and block ring, and a walk in which an occluded ray drops out
+of the packet's exit test.  Shadow packets are sparse, so a packet with at
+most 32 live lanes is walked by one warp (eight packets to a CTA,
+``treelet_any_hit_warp_kernel``, up to 512 treelets) and the others by a
+CTA whose threads hold the live rays compacted, several threads to a ray
+when they are few (``treelet_any_hit_kernel``).  Below 96 treelets, where
+a packet has little to walk, one kernel takes every packet
+(``treelet_any_hit_walk_kernel``, the closest-hit walk's any-hit mode).
+Its twin is ``treelet_any_hit_plain``.
 """
 
 from __future__ import annotations
@@ -139,9 +145,12 @@ def treelet_any_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=N
     return act_p & (t == -BIG)
 
 
-def _checked_launch(name, rows, act_p, tre_min, tre_max, tre_tris, leaf):
+def _checked_launch(name, rows, act_p, tre_min, tre_max, tre_tris, leaf,
+                    smem_bytes="tpupt_treelet_smem_bytes"):
     """The checks both walk kernels make of their inputs, which are the
-    same, and the kernel library.  Returns (library, packets, treelets)."""
+    same, and the kernel library; ``smem_bytes`` names the library's
+    function that sizes the launch's shared memory.  Returns (library,
+    packets, treelets)."""
     req = kernels.require
     req(tre_tris.is_cuda, f"{name}: unsupported device {tre_tris.device}")
     np_, p = rows["rox"].shape
@@ -164,7 +173,7 @@ def _checked_launch(name, rows, act_p, tre_min, tre_max, tre_tris, leaf):
     req(leaf % 4 == 0, f"{name}: the leaf size {leaf} must be a multiple of 4")
     req(tre_tris.data_ptr() % 16 == 0, f"{name}: tre_tris must be 16-byte aligned")
     lib = kernels.load()
-    smem = lib.tpupt_treelet_smem_bytes(K, leaf)
+    smem = getattr(lib, smem_bytes)(K, leaf)
     limit = torch.cuda.get_device_properties(tre_tris.device).shared_memory_per_block_optin
     req(smem <= limit, f"{name}: {K} treelets need {smem} B of shared memory > {limit}")
     return lib, np_, K
@@ -219,12 +228,14 @@ def treelet_any_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
     """Occlusion per lane for packed shadow rays (``packets._pack_rows``
     with the window end as the t cap): (np, 256) bool, True where an active
     lane hits a triangle at t in [tmin, t].  Inputs as
-    ``treelet_closest_hit``'s.  Launches are counted in
-    ``treelet_any_hit.launches``."""
+    ``treelet_closest_hit``'s.  Calls are counted in
+    ``treelet_any_hit.launches``: one per call, which launches the walk
+    kernel alone below 96 treelets, the warp route and the block route up
+    to 512, and the block route alone above."""
     if tre_tris.device.type == "cpu":
         return treelet_any_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf)
     lib, np_, K = _checked_launch("treelet_any_hit", rows, act_p, tre_min, tre_max, tre_tris,
-                                  leaf)
+                                  leaf, smem_bytes="tpupt_any_hit_smem_bytes")
     occ = torch.empty((np_, PACKET), dtype=torch.bool, device=tre_tris.device)
     if np_:
         err = lib.tpupt_treelet_any_hit(
