@@ -25,12 +25,18 @@ ajax-white-hi.json's 327,680 triangles, the any-hit kernels' occlusion on
 that scene's shadow rays against the twin and the BVH walk, and the
 brute-force render,
 which traces its shadow rays itself, against the render on bunny.json
-and cornell_area.json.
+and cornell_area.json.  Last, the bench harness (``tpupt_torch.bench``):
+``run_config`` for each of its seven configs at full size, the sweep held
+against its twin on trips of the full multi_mesh.json, ajax-white.json
+and ajax-white-hi.json renders, multimesh's sharded branch on two gloo
+processes and ``python -m tpupt_torch.bench.scaling 2``.  Every phase
+prints its wall.
 
     python chip_smoke.py
 
-(``python chip_smoke.py --band-rank R PORT OUT`` is one rank of phase 16's
-two-process render, which the script starts itself.)
+(``python chip_smoke.py --band-rank R PORT OUT`` and ``--harness-rank R
+PORT OUT`` are one rank of phase 16's and phase 18's two-process runs,
+which the script starts itself.)
 
 Phases print as they go; any failure raises and the script exits non-zero.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -59,8 +65,10 @@ import tempfile
 import time
 import zlib
 
-import numpy as np
-import torch
+T_START = time.perf_counter()  # the run's wall, imports included
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch sees no CUDA device")
@@ -70,6 +78,7 @@ sys.path.insert(0, ROOT)
 
 import tpupt_torch  # noqa: E402  (needs the repository beside this script)
 from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noqa: E402
+from tpupt_torch.bench import harness  # noqa: E402
 from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
 from tpupt_torch.core.vec import Vec3  # noqa: E402
 from tpupt_torch.cpu_ref.renderer import intersect_scene_ids_brute, render_image_ref  # noqa: E402
@@ -113,7 +122,19 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 SLAB_FLOPS, MT_FLOPS = 27, 56
 
 
+PHASE_WALLS = {}  # phase id -> wall seconds
+_open_phase = []
+
+
 def phase(name):
+    """Start phase ``name`` (its id is the first word), ending the one
+    before it and printing that one's wall."""
+    now = time.perf_counter()
+    if _open_phase:
+        prev, t0 = _open_phase.pop()
+        PHASE_WALLS[prev] = now - t0
+        print(f"-- phase {prev}: {now - t0:.1f} s of wall", flush=True)
+    _open_phase.append((name.split()[0], now))
     print(f"\n== {name}", flush=True)
 
 
@@ -186,6 +207,29 @@ def band_worker(rank, port, out):
     torch.distributed.destroy_process_group()
 
 
+def harness_worker(rank, port, out):
+    """One rank of phase 18's two-process run of the harness's sharded
+    branch on the one card: ``run_config("multimesh")`` at its full size in
+    a gloo group of two; saves the result and the last sharded call's
+    gathered buffers and rays."""
+    from tpupt_torch.dist import sharding
+
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    render_sharded, last = sharding.render_image_sharded, {}
+
+    def recording(*args, **kw):
+        buf, rays = render_sharded(*args, **kw)
+        last.update(color=buf.color, normal=buf.normal, depth=buf.depth, call_rays=rays)
+        return buf, rays
+
+    sharding.render_image_sharded = recording
+    res = harness.run_config("multimesh", iters=1)
+    np.savez(out, mrays=res.mrays_per_sec, rays=res.rays, seconds=res.seconds,
+             **{k: float(v) for k, v in res.extra.items()},
+             **{k: v.cpu().numpy() for k, v in last.items()})
+    torch.distributed.destroy_process_group()
+
+
 def require_equal(name, got, want):
     for i, (a, b) in enumerate(zip(got, want)):
         if a.dtype != b.dtype or not torch.equal(a, b):
@@ -195,6 +239,9 @@ def require_equal(name, got, want):
 
 if sys.argv[1:2] == ["--band-rank"]:
     band_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    sys.exit(0)
+if sys.argv[1:2] == ["--harness-rank"]:
+    harness_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     sys.exit(0)
 
 # --- 0 -------------------------------------------------------------------
@@ -312,12 +359,13 @@ def pack(ro, rd, t_min, active):
     return packets._pack_rows(ro, rd, t_min, sphere_seed(ro, rd, t_min, active), active)
 
 
-def compare_sweep(label, scn, rows, act_p, same_rays=None):
+def compare_sweep(label, scn, rows, act_p, same_rays=None, plain_reps=2):
     """The kernel against its twin on one packed batch of ``scn``'s table,
     all six outputs exact; the work the twin's loop counts, the bound and
-    the times.  ``same_rays`` is this function's result on the same rays in
-    another packing: the rays need no more work than the lesser of the two
-    counts, so the bound takes that one."""
+    the times (the twin's over ``plain_reps`` calls).  ``same_rays`` is this
+    function's result on the same rays in another packing: the rays need no
+    more work than the lesser of the two counts, so the bound takes that
+    one."""
     k3, l3 = scn.tre_min.shape[0], scn.s_leaf_size
     args = (rows, act_p, scn.tre_min, scn.tre_max, scn.tre_tris, l3)
     out_k = sweep_kernel.treelet_closest_hit(*args)
@@ -328,7 +376,7 @@ def compare_sweep(label, scn, rows, act_p, same_rays=None):
     hit = out_k[1] >= 0
     err = float((out_k[0][hit] - out_p[0][hit]).abs().max()) if bool(hit.any()) else 0.0
     ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit(*args), 20)
-    plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args), 2)
+    plain_ms = cuda_ms(lambda: sweep_kernel.treelet_closest_hit_plain(*args), plain_reps)
     lanes = act_p.numel()
     packed_flops = work["slab_tests"] * SLAB_FLOPS + work["mt_pairs"] * MT_FLOPS
     flops = packed_flops if same_rays is None else min(packed_flops, same_rays["gflop"] * 1e9)
@@ -486,9 +534,10 @@ with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) a
     tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=SPP, max_bounces=MAX_BOUNCES,
                              rr_start=RR, device=DEV)
     torch.cuda.synchronize()
-kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+kav = prof.key_averages()
+kern = [e for e in kav if e.self_device_time_total > 0]
 with open(os.path.join(OUT, "render_profile.txt"), "w") as fh:
-    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=40))
 busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
 sweep = [e for e in kern if "treelet_closest_hit_kernel" in e.key]
 sweep_ms = sum(e.self_device_time_total for e in sweep) / 1e3
@@ -852,7 +901,7 @@ def drive_nee(name, calls):
         walls.append(time.perf_counter() - t0)
         assert (rays2, trips2, read_counts()) == (rays, trips, counts), \
             f"{name}: segments, trips or launches moved between calls"
-    wall = sorted(walls)[len(walls) // 2]
+    wall = float(np.median(walls))
     print(f"{name}: first call {first:.3f} s; {trips} trips, {rays} traced segments, launches "
           f"{counts}; mean colour {[round(x, 4) for x in mean]}")
     print(f"  calls 2-{calls + 1}: {', '.join(f'{w:.3f}' for w in walls)} s wall; median {wall:.3f} s = "
@@ -863,7 +912,8 @@ def drive_nee(name, calls):
                 wall_s=wall, mrays_per_s=rays / wall / 1e6, mean_colour=mean)
 
 
-nee_fwd = {name: drive_nee(name, 3) for name in NEE_SPP}
+# two timed calls after the first: the run's wall is bounded
+nee_fwd = {name: drive_nee(name, 2) for name in NEE_SPP}
 assert sum(nee_fwd["cornell.json"]["launches"].values()) == 0  # no mesh: no sweep at all
 area_launches = nee_fwd["cornell_area.json"]["launches"]
 assert area_launches["treelet_any_hit"] > 0 and area_launches["treelet_closest_hit"] > 0, \
@@ -872,9 +922,10 @@ assert area_launches["treelet_any_hit"] > 0 and area_launches["treelet_closest_h
 with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     nee_render("cornell_area.json")
     torch.cuda.synchronize()
-kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+kav = prof.key_averages()
+kern = [e for e in kav if e.self_device_time_total > 0]
 with open(os.path.join(OUT, "cornell_area_render_profile.txt"), "w") as fh:
-    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=40))
 area_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
 area_any_ms = sum(e.self_device_time_total for e in kern if "treelet_any_hit" in e.key) / 1e3
 print(f"profiled cornell_area render: device busy {area_busy_ms:.1f} ms = "
@@ -1013,7 +1064,7 @@ print(f"checkpoint at iteration {SPP}: saved, loaded, one more sample equal to t
 # per-sample steps in each mode, in turns (the first of a pair alternates):
 # bit-equal, the same segments; the streaming/megakernel wall ratio of
 # each pair
-MODE_PAIRS = 10
+MODE_PAIRS = 6
 mega, stream = fresh_tracer(), fresh_tracer("streaming")
 mode_walls = {"megakernel": [], "streaming": []}
 for i in range(MODE_PAIRS):
@@ -1184,8 +1235,9 @@ print(f"  {st_s['rays']} segments = the chained render's at 2 spp  [{smi}]")
 cli_compacted, cli_uncompacted = compare_bounce2(f"CLI {CLI_W}x{CLI_H} no RR", CLI_W, CLI_H,
                                                  None)
 
-st_a, la_a, png_a, wall_a = run_cli("cornell_area", "cornell_area.json")
-assert (st_a["resolution"], st_a["spp"]) == ([NEE_SIZE, NEE_SIZE], 16), st_a
+# at 4 of the scene's 16 spp: the run's wall is bounded
+st_a, la_a, png_a, wall_a = run_cli("cornell_area", "cornell_area.json", "--spp", "4")
+assert (st_a["resolution"], st_a["spp"]) == ([NEE_SIZE, NEE_SIZE], 4), st_a
 assert la_a["treelet_closest_hit"] > 0 and la_a["treelet_any_hit"] > 0, la_a
 assert st_a["rays"] > NEE_SIZE * NEE_SIZE and png_a.any(), st_a
 cli["cornell_area.json"] = dict(stats=st_a, launches=la_a, wall_s=wall_a)
@@ -1197,9 +1249,10 @@ with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) a
     tpupt_torch.render_image(scene, desc.camera, CLI_W, CLI_H, spp=CLI_SPP,
                              max_bounces=CLI_BOUNCES)
     torch.cuda.synchronize()
-kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+kav = prof.key_averages()
+kern = [e for e in kav if e.self_device_time_total > 0]
 with open(os.path.join(OUT, "cli_bunny_render_profile.txt"), "w") as fh:
-    fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    fh.write(kav.table(sort_by="self_device_time_total", row_limit=40))
 cli_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
 cli_sweep_ms = sum(e.self_device_time_total for e in kern
                    if "treelet_closest_hit_kernel" in e.key) / 1e3
@@ -1458,26 +1511,33 @@ for overlap in (True, False):
           f"(calls, device ms) {coll}  [{smi}]")
 torch.distributed.destroy_process_group()
 
+
+def two_ranks(flag, timeout=600):
+    """``chip_smoke.py <flag> R PORT OUT`` as ranks 0 and 1 of a gloo group
+    on this host, sharing the card; each rank's saved arrays."""
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
+                                   str(r), str(port), outs[r]], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  # both ranks on this host: gloo's pairs over loopback
+                                  env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"))
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, (so, se) in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"a {flag} rank exited {p.returncode}:\n{se[-3000:]}")
+        return [dict(np.load(o)) for o in outs]
+
+
 # two ranks on the one card, gloo over CUDA tensors
 b2 = BAND2["size"]
-with tempfile.TemporaryDirectory() as tmp:
-    port = free_port()
-    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--band-rank",
-                               str(r), str(port), outs[r]], cwd=ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              # both ranks on this host: gloo's pairs over loopback
-                              env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"))
-             for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (so, se) in zip(procs, logs):
-        if p.returncode != 0:
-            raise AssertionError(f"a band rank exited {p.returncode}:\n{se[-3000:]}")
-    ranks2 = [dict(np.load(o)) for o in outs]
+ranks2 = two_ranks("--band-rank")
 buf2, rays2 = tpupt_torch.render_image(scene, desc.camera, b2, b2, spp=BAND2["spp"],
                                        max_bounces=BAND2["max_bounces"],
                                        rr_start=BAND2["rr_start"])
@@ -1626,6 +1686,250 @@ print(f"  equal to the BVH walk's occlusion on all {int(lit_side.sum())} lanes "
       f"({int(occ_hb.sum())} occluded; the walk {hi_bvh_s:.2f} s)")
 del scene_hi, rows_h, actp_h, rows_hs, actp_hs
 
+# --- 18 ------------------------------------------------------------------
+phase("18 the harness: run_config for every config at its CONFIGS size; treelet_closest_hit vs "
+      "twin on multi_mesh, ajax-white and ajax-white-hi trips; the sharded branch on two gloo "
+      "ranks; the scaling script")
+# a twin call on a trip of the bigger scenes is held to about this long: a
+# middle band of the trip's image rows where the whole trip would take more
+TWIN_BUDGET_S = 5.0
+BAND_UNIT = 16  # rows: a band of 16 rows is whole packets at widths 720 and 1024
+
+
+def run_harness_config(name):
+    """``harness.run_config(name, iters=1)`` on the card, counts reset just
+    before and read just after: the result, the call's wall, the scene
+    build's seconds (inside it), the scene and camera it built, and the
+    render calls it made (the warm-up and the windows'); then one more of
+    those calls under torch.profiler."""
+    cfg, orig_timed, built, calls, call = harness.CONFIGS[name], harness._timed, {}, [], {}
+
+    def build(**kw):
+        t0 = time.perf_counter()
+        scn, cam = cfg["scene"](**kw)
+        torch.cuda.synchronize()
+        built.update(build_s=time.perf_counter() - t0, scene=scn, camera=cam)
+        return scn, cam
+
+    def timed(fn, args, iters, group=None):
+        def counted(*a):
+            calls.append(1)
+            return fn(*a)
+        call.update(fn=fn, args=args)
+        return orig_timed(counted, args, iters, group)
+
+    harness.CONFIGS[name], harness._timed = dict(cfg, scene=build), timed
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = harness.run_config(name, iters=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        harness.CONFIGS[name], harness._timed = cfg, orig_timed
+    n_calls = len(calls)
+    assert all(v % n_calls == 0 for v in counts.values()), (name, counts, n_calls)
+    per_call = {k: v // n_calls for k, v in counts.items()}
+    scn = built["scene"]
+    info = dict(mrays_per_s=res.mrays_per_sec, rays=res.rays, equivalent_s=res.seconds,
+                calls=n_calls, wall_s=wall, build_s=built["build_s"],
+                treelets=int(scn.tre_min.shape[0]), triangles=int(scn.tri_idx.shape[0]),
+                launches_per_call=per_call, extra=res.extra)
+    print(f"{name}: {res.mrays_per_sec:.3f} Mrays/s (best window), {res.rays} rays in the "
+          f"{n_calls - 1} timed calls, {res.seconds:.3f} equivalent s; the call {wall:.1f} s of "
+          f"wall, the scene build {built['build_s']:.2f} s of it; {info['triangles']} triangles, "
+          f"K={info['treelets']}; launches per render call {per_call}  [{smi}]", flush=True)
+    # the device's time in one more call, by kernel, beside the best
+    # window's time a call
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call["fn"](*call["args"])
+        torch.cuda.synchronize()
+    kav = prof.key_averages()
+    kern = sorted((e for e in kav if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    with open(os.path.join(OUT, f"harness_{name}_profile.txt"), "w") as fh:
+        fh.write(kav.table(sort_by="self_device_time_total", row_limit=30))
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    call_ms = res.seconds / (n_calls - 1) * 1e3
+    sweep = sum(e.self_device_time_total for e in kern if "treelet_closest_hit_kernel" in e.key)
+    info.update(best_window_call_ms=call_ms, profiled_device_busy_ms=busy,
+                profiled_sweep_ms=sweep / 1e3, profiled_kernels=sum(e.count for e in kern),
+                profiled_top=[(e.key[:60], e.self_device_time_total / 1e3) for e in kern[:4]])
+    print(f"  profiled call: device busy {busy:.1f} ms = {busy / call_ms:.1%} of the best window's "
+          f"{call_ms:.1f} ms a call; the sweep {sweep / 1e3:.1f} ms; {info['profiled_kernels']} "
+          f"kernels; top {[(k, round(v, 1)) for k, v in info['profiled_top']]}"
+          if busy > 0 else "  profiled call: the profiler recorded no device time (not measured)",
+          flush=True)
+    return info, scn, built["camera"]
+
+
+def record_trips(name, scn, cam):
+    """One render at the config's settings with the sweep's rows of trips
+    0 and 2 kept: (buffers, rays, trips, {trip: (rows, act)}, peak bytes,
+    wall)."""
+    cfg, (w, h), kept = harness.CONFIGS[name], config_wh(name), {}
+
+    def record(*args, **kw):
+        record.calls += 1
+        if record.calls in (1, 3):
+            kept[record.calls - 1] = args[:2]
+        return sweep_kernel.treelet_closest_hit(*args, **kw)
+
+    record.calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    (buf, rays), wall = timed(lambda: tpupt_torch.render_image(
+        scn, cam, w, h, spp=cfg["spp"], max_bounces=cfg["mb"], rr_start=cfg["rr"],
+        intersect_fn=functools.partial(intersect.intersect_scene_ids, closest_hit=record)))
+    peak = torch.cuda.max_memory_allocated() - mem0
+    return buf, int(rays), record.calls, kept, peak, wall
+
+
+def config_wh(name):
+    size = harness.CONFIGS[name]["size"]
+    return (size, size) if isinstance(size, int) else size
+
+
+def twin_band(scn, rows, act_p, width):
+    """The packets of the middle band of a trip's image rows on which one
+    twin call takes about TWIN_BUDGET_S (the whole trip where it fits), by
+    a probe of 4 x BAND_UNIT middle rows (the bust's, the heaviest, so the
+    estimate errs long): (rows, act, first row, rows)."""
+    height = act_p.numel() // width
+    unit = BAND_UNIT * width // packets.PACKET
+    assert BAND_UNIT * width % packets.PACKET == 0 and height % BAND_UNIT == 0, (width, height)
+    units = height // BAND_UNIT
+
+    def band(u0, n_units):
+        sl = slice(u0 * unit, (u0 + n_units) * unit)
+        return {k: v[sl] for k, v in rows.items()}, act_p[sl]
+
+    probe_units = min(4, units)
+    probe = functools.partial(sweep_kernel.treelet_closest_hit_plain,
+                              *band((units - probe_units) // 2, probe_units), scn.tre_min,
+                              scn.tre_max, scn.tre_tris, scn.s_leaf_size)
+    probe()  # warm-up
+    _, probe_s = timed(probe)
+    n_units = max(1, min(units, int(TWIN_BUDGET_S / (probe_s / probe_units))))
+    u0 = (units - n_units) // 2
+    return (*band(u0, n_units), u0 * BAND_UNIT, n_units * BAND_UNIT)
+
+
+harness_info = {}
+harness_sweeps = {}
+for name in harness.CONFIGS:
+    info, scn, cam = run_harness_config(name)
+    harness_info[name] = info
+    meshes = name in ("bunny", "multimesh", "ajax", "ajax_hi")
+    assert (info["launches_per_call"]["treelet_closest_hit"] > 0) == meshes, (name, info)
+    assert info["launches_per_call"]["treelet_any_hit"] == 0, (name, info)  # no mesh light
+    if name not in ("multimesh", "ajax", "ajax_hi"):
+        del scn
+        continue
+    # the render once more, its trips 0 and 2 kept: the same rays and
+    # launches as each of run_config's calls; the sweep against its twin
+    buf, rays, trips, kept, peak, wall = record_trips(name, scn, cam)
+    per_call = info["rays"] // (info["calls"] - 1)
+    assert rays == per_call and trips == info["launches_per_call"]["treelet_closest_hit"], \
+        (name, rays, per_call, trips, info["launches_per_call"])
+    for key in ("color", "normal", "depth"):
+        assert bool(torch.isfinite(getattr(buf, key)).all()), (name, key)
+    w, h = config_wh(name)
+    info.update(trips=trips, peak_bytes=peak, render_wall_s=wall)
+    print(f"  {name} render with its trips kept: {rays} rays in {trips} trips, {wall:.2f} s; peak "
+          f"memory {peak / 2**30:.2f} GiB; every buffer finite", flush=True)
+    if name != "multimesh":
+        # the bust is visible: the frame centre differs from the sky that
+        # a render with the treelet table emptied shows
+        empty = dataclasses.replace(scn, tre_min=torch.full((1, 3), 3e37, device=DEV),
+                                    tre_max=torch.full((1, 3), 3e37, device=DEV),
+                                    tre_tris=scn.tre_tris[:1])
+        sky, _ = tpupt_torch.render_image(empty, cam, w, h, spp=1, max_bounces=2)
+        mid = (slice(h // 3, 2 * h // 3), slice(w // 3, 2 * w // 3))
+        gap = float((buf.color.reshape(h, w, 3)[mid] - sky.color.reshape(h, w, 3)[mid]).abs().max())
+        assert gap > 0.05, f"{name}: bust not visible (gap {gap})"
+        info["bust_gap"] = gap
+        print(f"  the bust is visible: the frame centre differs from the sky by up to {gap:.3f}")
+        del empty, sky
+    np.save(os.path.join(OUT, f"{name}_{w}x{h}_{harness.CONFIGS[name]['spp']}spp.npy"),
+            buf.color.reshape(h, w, 3).cpu().numpy().astype(np.float16))
+    del buf
+    for trip in (0, 2):
+        rows_t, act_t = kept.pop(trip)
+        rows_b, act_b, r0, nr = twin_band(scn, rows_t, act_t, w)
+        where = "the whole trip" if nr == h else f"rows {r0}-{r0 + nr - 1} of {h}"
+        harness_sweeps[f"{name}_trip{trip}"] = res_t = compare_sweep(
+            f"{name} {w}x{h} trip {trip}, {where}", scn, rows_b, act_b, plain_reps=1)
+        res_t.update(rows=[r0, nr])
+        del rows_t, act_t, rows_b, act_b
+    del scn, kept
+
+# multi_mesh.json on the card against the same port on the host's CPU
+# (where the sweep is its twin and every elementwise op is torch's CPU
+# kernel), small: glass and metal meshes, refraction into closed meshes.
+# The rule of the CPU tests against the JAX package: rays equal, at least
+# 97% of the colour values inside IMAGE (rtol 1e-4, atol 1e-5)
+MM_SMALL = dict(width=64, height=64, spp=2, max_bounces=harness.CONFIGS["multimesh"]["mb"],
+                rr_start=harness.CONFIGS["multimesh"]["rr"])
+scn_gpu, cam_mm = harness.CONFIGS["multimesh"]["scene"]()
+scn_cpu, _ = harness.CONFIGS["multimesh"]["scene"](device="cpu")
+(on_card, card_rays), card_s = timed(lambda: tpupt_torch.render_image(scn_gpu, cam_mm, **MM_SMALL))
+(on_cpu, cpu_rays), cpu_s = timed(lambda: tpupt_torch.render_image(scn_cpu, cam_mm, **MM_SMALL))
+assert int(card_rays) == int(cpu_rays), (int(card_rays), int(cpu_rays))
+mm_gap = {}
+for key in ("color", "normal", "depth"):
+    a, b = getattr(on_card, key).cpu(), getattr(on_cpu, key)
+    inside = (a - b).abs() <= 1e-5 + 1e-4 * b.abs()
+    assert bool(torch.isfinite(a).all()) and float(inside.float().mean()) >= 0.97, key
+    outside = (~inside).reshape(a.shape[0], -1).any(dim=1).nonzero().flatten().tolist()
+    mm_gap[key] = dict(max_abs=float((a - b).abs().max()), inside=float(inside.float().mean()),
+                       pixels_outside=outside[:16], n_outside=len(outside))
+harness_info["multimesh"]["card_vs_cpu_64"] = dict(rays=int(card_rays), gaps=mm_gap, card_s=card_s,
+                                                   cpu_s=cpu_s)
+print(f"multi_mesh.json 64^2, 2 spp, card vs the host's CPU: {int(card_rays)} rays each; "
+      + "; ".join(f"{k}: max |diff| {v['max_abs']:.3g}, {v['inside']:.2%} inside IMAGE, pixels "
+                  f"outside {v['pixels_outside']}" for k, v in mm_gap.items())
+      + f"; {card_s:.2f} s vs {cpu_s:.2f} s")
+del scn_gpu, scn_cpu, on_card, on_cpu
+
+# the sharded branch: multimesh on two gloo ranks sharing the card, each
+# gathered image held to one process's render of the same work (the
+# sharded render runs without roulette, as in the JAX harness)
+mm = harness.CONFIGS["multimesh"]
+ranks_h = two_ranks("--harness-rank", timeout=900)
+scn_mm, cam_mm = mm["scene"]()
+one, one_rays = tpupt_torch.render_image(scn_mm, cam_mm, mm["size"], mm["size"], spp=mm["spp"],
+                                         max_bounces=mm["mb"])
+for r, res in enumerate(ranks_h):
+    assert int(res["call_rays"]) == int(one_rays), (r, int(res["call_rays"]), int(one_rays))
+    for key in ("color", "normal", "depth"):
+        assert np.array_equal(res[key], getattr(one, key).cpu().numpy()), (r, key)
+harness_info["multimesh"]["sharded"] = {
+    f"rank{r}": {k: float(res[k]) for k in ("mrays", "sharded_mrays", "devices", "scaling_eff")}
+    for r, res in enumerate(ranks_h)}
+print(f"multimesh sharded branch on two gloo ranks sharing the card: the gathered image equals "
+      f"one process's ({int(one_rays)} rays) on both ranks; "
+      + "; ".join(f"rank {r}: {float(res['mrays']):.3f} Mrays/s one-process, sharded_mrays "
+                  f"{float(res['sharded_mrays']):.3f}, devices {int(res['devices'])}, scaling_eff "
+                  f"{float(res['scaling_eff']):.4f}" for r, res in enumerate(ranks_h))
+      + f"  [{smi}]")
+del scn_mm, one
+
+# the scaling script as a user runs it
+proc = subprocess.run([sys.executable, "-m", "tpupt_torch.bench.scaling", "2"], capture_output=True,
+                      text=True, timeout=900, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+if proc.returncode != 0:
+    raise AssertionError(f"tpupt_torch.bench.scaling exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+scaling_line = json.loads(proc.stdout.strip().splitlines()[-1])
+assert scaling_line["devices"] == 2 and scaling_line["device"] == torch.cuda.get_device_name(0)
+print(f"python -m tpupt_torch.bench.scaling 2: {json.dumps(scaling_line)}  [{smi}]")
+phase("report")
+print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_WALLS.items())
+      + f"; total {time.perf_counter() - T_START:.1f} s")
+
 # --- report ----------------------------------------------------------------
 
 
@@ -1642,19 +1946,21 @@ report = {
         launches=launches["treelet_closest_hit"],
         max_abs_err=max(r["max_abs_err"] for r in (
             primary, secondary, closest_area, compacted, uncompacted, cli_compacted,
-            cli_uncompacted, *cli_trips.values())),
+            cli_uncompacted, *cli_trips.values(), *harness_sweeps.values())),
         # the top-level times are the 1024^2 primaries'
         ms=primary["ms"], plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
         bound_by=primary["bound_by"], library_ms=None, visits=primary["work"]["visits"],
         cli_launches={k: v["launches"]["treelet_closest_hit"] for k, v in cli.items()},
         fit_step_launches=fit_per_step["treelet_closest_hit"],
         band_launches=band_launches("treelet_closest_hit"),
+        harness_launches_per_call={k: v["launches_per_call"]["treelet_closest_hit"]
+                                   for k, v in harness_info.items()},
         inputs={"primaries": primary, "secondaries": secondary,
                 "cornell_area_bounce0": closest_area, "wavefront_compacted": compacted,
                 "megakernel_bounce2": uncompacted, **cli_trips,
                 "cli_wavefront_compacted": cli_compacted,
                 "cli_megakernel_bounce2": cli_uncompacted,
-                "ajax_white_hi_primaries": hi_sweep},
+                "ajax_white_hi_primaries": hi_sweep, **harness_sweeps},
     ), dict(
         # the same kernel's payload form (the JAX package's diff_payload
         # sweep, tpupt/accel/packets.py:845), launched by the fwd+bwd step
@@ -1730,6 +2036,9 @@ report = {
     "oracles": dict(oracle_info, render_image_ref_gap=ref_gap,
                     cornell_area_render_image_ref_gap=area_ref_gap,
                     ajax_white_hi=dict(treelets=K_hi, smem_bytes=hi_smem, build_s=hi_build_s)),
+    "harness": harness_info,
+    "scaling": scaling_line,
+    "phase_walls_s": PHASE_WALLS,
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
     config = dict(scene="bunny.json", size=SIZE, spp=SPP, max_bounces=MAX_BOUNCES, rr_start=RR,

@@ -57,6 +57,7 @@ def test_import_keeps_jax_out():
         "import tpupt_torch.dist.sharding, tpupt_torch.dist.bootstrap\n"
         "import tpupt_torch.diff.fit, tpupt_torch.diff.overlap\n"
         "import tpupt_torch.accel.traverse, tpupt_torch.cpu_ref.renderer\n"
+        "import tpupt_torch.bench.harness, tpupt_torch.bench.scaling\n"
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'PIL', 'matplotlib')\n"
         "       or m.startswith(('jax.', 'optax.', 'tpupt.', 'PIL.', 'matplotlib.'))]\n"
         "assert not bad, bad\n"
@@ -120,7 +121,9 @@ def test_native_builder_source_lives_in_the_port():
 def test_entry_points_default_to_the_card():
     """Scenes are built on the card unless the caller names a device; with
     no card the build raises instead of falling back to the CPU.  The
-    render follows the scene's device."""
+    render follows the scene's device.  So do the bench harness's scene
+    builders, ``run_config`` and the scaling measurement."""
+    from tpupt_torch.bench import harness, scaling
     from tpupt_torch.core.types import scene_from_numpy
     from tpupt_torch.diff.params import params_from_numpy
     from tpupt_torch.render.integrator import render_image
@@ -134,11 +137,22 @@ def test_entry_points_default_to_the_card():
     d = SceneDescription()
     d.add_material("m", "lambertian", albedo=(1, 1, 1))
     d.add_sphere(1.0, np.eye(4), "m")
+    builders = [cfg["scene"] for cfg in harness.CONFIGS.values()] + [scaling._flagship_scene]
+    for fn in builders + [harness.run_config, scaling.measure]:
+        assert sig(fn).parameters["device"].default == "cuda", fn.__name__
     if torch.cuda.is_available():
         assert d.build().device.type == "cuda"
+        assert harness._scene_sphere()[0].device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             d.build()
+        for fn in (harness._scene_sphere, harness._scene_cornell, scaling._flagship_scene):
+            with pytest.raises((AssertionError, RuntimeError)):
+                fn()
+        with pytest.raises((AssertionError, RuntimeError)):
+            harness.run_config("sphere", iters=1)
+        with pytest.raises(RuntimeError):
+            scaling.measure(2)
 
 
 def test_wang_hash_bit_equal():

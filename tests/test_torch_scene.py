@@ -92,7 +92,8 @@ def full_scene_description(desc_cls, m3):
     return d
 
 
-SCENES = ["bunny.json", "multi_mesh.json", "cornell.json", "cornell_area.json", "three_balls.json"]
+SCENES = ["bunny.json", "multi_mesh.json", "cornell.json", "cornell_area.json", "three_balls.json",
+          "ajax-white.json", "ajax-white-hi.json"]
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +102,8 @@ def scenes_dir(tmp_path_factory):
     files generate the shared assets/models concurrently."""
     root = tmp_path_factory.mktemp("assets")
     shutil.copytree(os.path.join(locate_asset_path(), "scenes"), root / "scenes")
-    ensure_models(str(root / "models"), names=["bunny.obj", "blob.obj", "knot.obj", "quad.obj"])
+    ensure_models(str(root / "models"), names=["bunny.obj", "blob.obj", "knot.obj", "quad.obj",
+                                              "ajax.obj", "ajax_hi.obj"])
     return str(root / "scenes")
 
 
