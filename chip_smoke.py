@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels from the sources in this checkout, holds each against its torch
 twin at the main path's shapes, renders the bunny scene at full size and
-checks the result, then takes the gradient of a full-size differentiable
+checks the result (the forward trip's kernels, trip_head and trip_tail,
+held to their twins on trips of that render and the render to the
+``_bounce_body`` route's, in turns), then takes the gradient of a full-size differentiable
 render with respect to every scene parameter, holds it against the twin's
 at 256^2 and runs the denoiser's backward pass.  Then next-event
 estimation: the any-hit shadow kernels against their twin on sparse,
@@ -26,9 +28,9 @@ that scene's shadow rays against the twin and the BVH walk, and the
 brute-force render,
 which traces its shadow rays itself, against the render on bunny.json
 and cornell_area.json.  Last, the bench harness (``tpupt_torch.bench``):
-``run_config`` for each of its seven configs at full size, the sweep held
-against its twin on trips of the full multi_mesh.json, ajax-white.json
-and ajax-white-hi.json renders, multimesh's sharded branch on two gloo
+``run_config`` for each of its seven configs at full size, the sweep and
+the trip kernels held against their twins on trips of the full
+multi_mesh.json, ajax-white.json and ajax-white-hi.json renders, multimesh's sharded branch on two gloo
 processes and ``python -m tpupt_torch.bench.scaling 2``.  Every phase
 prints its wall.
 
@@ -45,6 +47,7 @@ it fails before printing any result.  Its standard output ends with:
   * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
     its launches on its main path (the forward render; the fwd+bwd step
     for the payload form; the cornell_area render for the any-hit kernel),
+    and the trip kernels' (the forward render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
     in a fit step and in each of phase 16's band renders,
@@ -89,7 +92,7 @@ from tpupt_torch.dist.sharding import (  # noqa: E402
 )
 from tpupt_torch.interactive.camera_controller import FirstPersonCameraController  # noqa: E402
 from tpupt_torch.interactive.viewer import InteractiveViewer  # noqa: E402
-from tpupt_torch.render import integrator, intersect, wavefront  # noqa: E402
+from tpupt_torch.render import integrator, intersect, trip_kernel, wavefront  # noqa: E402
 from tpupt_torch.render.materials import shade  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
@@ -235,6 +238,209 @@ def require_equal(name, got, want):
         if a.dtype != b.dtype or not torch.equal(a, b):
             gap = ulp_gap(a.float(), b.float()) if a.is_floating_point() else "n/a"
             raise AssertionError(f"{name}: output {i} differs from the twin (max ulp gap {gap})")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+HEAD_OUT = ("hrec", "hint", "rows", "act_p")  # the TripBuffers trip_head writes
+
+
+def head_out(buf):
+    return {k: None if getattr(buf, k) is None else getattr(buf, k).clone() for k in HEAD_OUT}
+
+
+def record_trip_inputs(render, keep):
+    """``render()`` with the inputs of its trips ``keep`` (0 = the first)
+    kept, cloned as trip_head and trip_tail receive them: the lane state
+    before the trip, trip_head's buffers before (``pre``, the earlier
+    trips' values in dead lanes) and after it, the sweep's outputs.
+    Returns (render()'s result, trips, {trip: record})."""
+    kept, heads, calls = {}, [0], [0]
+    head, tail = trip_kernel.trip_head, trip_kernel.trip_tail
+
+    def recording_head(plan, F, I, buf):
+        if heads[0] in keep:
+            kept[heads[0]] = dict(pre=head_out(buf))
+        heads[0] += 1
+        return head(plan, F, I, buf)
+
+    def recording(plan, F, I, buf, sweep=None):
+        if calls[0] in keep:
+            kept[calls[0]].update(
+                plan=plan, F=F.clone(), I=I.clone(), **head_out(buf),
+                sweep=None if sweep is None else tuple(o.clone() for o in sweep))
+        calls[0] += 1
+        return tail(plan, F, I, buf, sweep)
+
+    trip_kernel.trip_head, trip_kernel.trip_tail = recording_head, recording
+    try:
+        out = render()
+    finally:
+        trip_kernel.trip_head, trip_kernel.trip_tail = head, tail
+    return out, calls[0], kept
+
+
+def events_ms(restore, fn, reps):
+    """Mean milliseconds of ``fn`` by a CUDA event pair around each call,
+    ``restore`` (not timed) before each; one warm-up call."""
+    restore()
+    fn()
+    pairs = []
+    for _ in range(reps):
+        restore()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        fn()
+        ev[1].record()
+        pairs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def kernel_ms(restore, fn, reps):
+    """Mean device milliseconds of ``fn``'s kernel by a CUDA event pair
+    around each call, issued while the stream still runs a spin kernel
+    (``torch.cuda._sleep``, ~1 ms), so the pair times the kernel, not the
+    host's issue of the wrapper; ``restore`` (not timed) before each."""
+    restore()
+    fn()
+    pairs = []
+    for _ in range(reps):
+        restore()
+        torch.cuda._sleep(2_000_000)
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        fn()
+        ev[1].record()
+        pairs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+# float operations a lane needs, counted from trip_kernels.cu and rounded
+# up (sinf and cosf at 20 each): trip_head per sphere object tested;
+# trip_tail per live lane (the hit record, background or shading, roulette)
+# and per lane that folds a sample and restarts
+HEAD_SPHERE_FLOPS, TAIL_LIVE_FLOPS, TAIL_FOLD_FLOPS = 120, 320, 80
+
+
+def trip_work(rec, I_after):
+    """The bytes and float operations the two kernels need on one
+    recorded trip, by what each lane does (each input read once, each
+    output written once, as trip_kernels.cu reads and writes them)."""
+    plan, I0 = rec["plan"], rec["I"]
+    keys = trip_kernel.I_KEYS
+    alive = I0[keys.index("alive")] != 0
+    done = (I0[keys.index("done")] != 0) if plan.chained else torch.zeros_like(alive)
+    n, live = plan.n, int(alive.sum())
+    touched = int((alive | ~done).sum()) if plan.chained else live
+    ended_lanes = I_after[keys.index("k")] != I0[keys.index("k")]
+    ended = int(ended_lanes.sum())
+    fresh = int((ended_lanes & (I_after[keys.index("done")] == 0)).sum())
+    mesh_hits = int(((rec["sweep"][1].reshape(-1)[:n] >= 0) & alive).sum()) if plan.mesh else 0
+    n_sph = plan.tables[1]
+    # head (PERF.md section 2's rule): alive of every lane; the ray rows
+    # and the record (t, point, normal, hint) of each live lane; with a
+    # mesh, the seed t and mask of every padded lane and the seven ray rows
+    # of each live and pad lane
+    head_bytes = n * 4 + live * (7 * 4 + 8 * 4)
+    head_bytes += plan.n_pad * 5 + (live + plan.n_pad - n) * 7 * 4 if plan.mesh else 0
+    # tail: alive, bounce (and done) of every lane; the 17 state rows, the
+    # segments and alive of each lane it touches; the record, seed (and
+    # slot) of each live lane, the sweep's winner of each mesh hit; k, the
+    # averages and done of each lane that ends; the seed of a restart
+    tail_bytes = (n * (12 + (4 if plan.chained else 0)) + touched * (17 * 8 + 12)
+                  + live * (36 + (4 if plan.mesh else 0)) + mesh_hits * 20 + ended * 68
+                  + fresh * 4 + 4)
+    return dict(lanes=n, live=live, touched=touched, ended=ended, restarts=fresh,
+                mesh_hits=mesh_hits, head_bytes=head_bytes, tail_bytes=tail_bytes,
+                head_flops=live * n_sph * HEAD_SPHERE_FLOPS,
+                tail_flops=live * TAIL_LIVE_FLOPS + ended * TAIL_FOLD_FLOPS)
+
+
+def require_equal_state(name, got, want):
+    """F and I of two runs exact; on a difference, which rows and how many
+    values moved, before failing."""
+    for label, a, b, keys in (("F", got[0], want[0], trip_kernel.F_KEYS),
+                              ("I", got[1], want[1], trip_kernel.I_KEYS)):
+        if not torch.equal(a, b):
+            moved = {k: int((a[j] != b[j]).sum()) for j, k in enumerate(keys)
+                     if not torch.equal(a[j], b[j])}
+            gap = ulp_gap(a, b) if label == "F" else "n/a"
+            raise AssertionError(f"{name}: {label} differs from the twin: values moved by row "
+                                 f"{moved} (max ulp gap {gap})")
+
+
+def compare_trip(label, rec, reps=20):
+    """trip_head and trip_tail against their twins on one recorded trip,
+    every output exact (and the head's equal to what the render's own
+    call wrote), each starting from the buffers the render's head found;
+    the kernels' time by CUDA events over the wrapper and on the device
+    (``kernel_ms``: without the host's issue, which the events over the
+    wrapper time on a trip with few live lanes), the twins', the work, the
+    bounds (the share of the device time)."""
+    plan, F, I = rec["plan"], rec["F"], rec["I"]
+    bk, bp = trip_kernel.trip_buffers(plan), trip_kernel.trip_buffers(plan)
+    for b in (bk, bp):
+        for k in HEAD_OUT:
+            if getattr(b, k) is not None:
+                getattr(b, k).copy_(rec["pre"][k])
+    trip_kernel.trip_head(plan, F, I, bk)
+    trip_kernel.trip_head_plain(plan, F, I, bp)
+    torch.cuda.synchronize()
+    head_k = [bk.hrec, bk.hint] + ([bk.rows, bk.act_p] if plan.mesh else [])
+    head_p = [bp.hrec, bp.hint] + ([bp.rows, bp.act_p] if plan.mesh else [])
+    require_equal(f"trip_head {label}", head_k, head_p)
+    require_equal(f"trip_head {label} vs the render's call", head_k,
+                  [rec[k] for k in HEAD_OUT][:len(head_k)])
+    for b in (bk, bp):
+        b.hrec.copy_(rec["hrec"])
+        b.hint.copy_(rec["hint"])
+    Fk, Ik, Fp, Ip = F.clone(), I.clone(), F.clone(), I.clone()
+    trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"])
+    trip_kernel.trip_tail_plain(plan, Fp, Ip, bp, rec["sweep"])
+    torch.cuda.synchronize()
+    require_equal_state(f"trip_tail {label}", (Fk, Ik), (Fp, Ip))
+    require_equal(f"trip_tail {label} count", [bk.count], [bp.count])
+    work = trip_work(rec, Ik)
+
+    def restore():
+        Fk.copy_(F)
+        Ik.copy_(I)
+
+    head_ms = cuda_ms(lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
+    tail_ms = events_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"]),
+                        reps)
+    head_dev_ms = kernel_ms(lambda: None, lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
+    tail_dev_ms = kernel_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"]),
+                            reps)
+    head_plain_ms = cuda_ms(lambda: trip_kernel.trip_head_plain(plan, F, I, bp), 2)
+    tail_plain_ms = events_ms(restore, lambda: trip_kernel.trip_tail_plain(plan, Fk, Ik, bp,
+                                                                           rec["sweep"]), 2)
+    out = {}
+    for name, ms, dev_ms, plain_ms, nbytes, flops in (
+            ("trip_head", head_ms, head_dev_ms, head_plain_ms, work["head_bytes"],
+             work["head_flops"]),
+            ("trip_tail", tail_ms, tail_dev_ms, tail_plain_ms, work["tail_bytes"],
+             work["tail_flops"])):
+        bound_ms, bound_by = bound(flops, nbytes)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, share_of_bound=bound_ms / dev_ms,
+                         max_abs_err=0.0, bytes=nbytes, flops=flops)
+    print(f"{label}: {work['lanes']} lanes, {work['live']} live, {work['ended']} samples ended, "
+          f"{work['restarts']} restarts, {work['mesh_hits']} mesh hits; trip_head and trip_tail "
+          f"equal to their twins (every output)")
+    for name, r in out.items():
+        print(f"  {name} {r['ms']:.4f} ms a call (events), {r['device_ms']:.4f} ms on the device, "
+              f"twin {r['plain_ms']:.3f} ms; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.4f} GFLOP; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['share_of_bound']:.1%} of it")
+    return dict(out, work=work)
 
 
 if sys.argv[1:2] == ["--band-rank"]:
@@ -486,10 +692,13 @@ def reset_counts():
     for w in counted:
         w.launches = 0
     sweep_kernel.treelet_closest_hit.payload_launches = 0
+    for k in trip_kernel.LAUNCHES:
+        trip_kernel.LAUNCHES[k] = 0
 
 
 def read_counts():
-    return dict(sweep_kernel.launch_counts(), winner_step=step_kernel.winner_step.launches)
+    return dict(sweep_kernel.launch_counts(), winner_step=step_kernel.winner_step.launches,
+                **trip_kernel.launch_counts())
 
 
 reset_counts()
@@ -507,13 +716,16 @@ assert launches["treelet_closest_hit(payload=True)"] == 0, launches
 assert launches["treelet_any_hit"] == 0, launches  # bunny.json has no emitter
 assert (launches["treelet_closest_hit"], rays) == (FWD_LAUNCHES, FWD_SEGMENTS), \
     f"the forward render's counts moved: {launches}, {rays} segments"
+# the main path is the trip route: one trip_head and one trip_tail a trip
+assert integrator.render_route(scene) == "trip"
+assert launches["trip_head"] == launches["trip_tail"] == FWD_LAUNCHES, launches
 assert rays > n, rays
 assert tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all()), "non-finite image"
 assert bool(torch.isfinite(buf.normal).all() and torch.isfinite(buf.depth).all())
 mean = img.mean(dim=0).tolist()
 assert 0.05 < min(mean) and max(mean) < 1.5, f"implausible mean colour {mean}"
-print(f"first call {first_s:.2f} s; launches {launches}; {rays} traced segments; "
-      f"mean colour {[round(x, 4) for x in mean]}")
+print(f"first call {first_s:.2f} s; the trip route; launches {launches}; {rays} traced "
+      f"segments; mean colour {[round(x, 4) for x in mean]}")
 walls = []
 for _ in range(3):
     torch.cuda.synchronize()
@@ -547,6 +759,77 @@ if busy_ms > 0:
           f"launches = {sweep_ms / busy_ms:.1%} of busy; {sum(e.count for e in kern)} kernels")
 else:
     print("profiled render: the profiler recorded no device time (not measured)")
+
+# --- 4a ------------------------------------------------------------------
+phase("4a trip_head and trip_tail vs their twins on bunny.json trips 0, 2 and the last; the "
+      "render by the trip route and by the body route, in turns")
+
+
+# the default hit pass wrapped: render_route sends any other intersect_fn,
+# this one too, to the body route (``_bounce_body``)
+BODY_ROUTE = functools.partial(intersect.intersect_scene_ids)
+
+
+def bunny_render(route="trip"):
+    """Phase 4's render by ``route``: "trip" (the route the call picks) or
+    "body" (``_bounce_body``, on the same hit pass)."""
+    fn = BODY_ROUTE if route == "body" else None
+    assert integrator.render_route(scene, False, fn) == route
+    return tpupt_torch.render_image(scene, desc.camera, SIZE, SIZE, spp=SPP,
+                                    max_bounces=MAX_BOUNCES, rr_start=RR, device=DEV,
+                                    intersect_fn=fn)
+
+
+LAST_TRIP = FWD_LAUNCHES - 1
+_, trips_b, kept_b = record_trip_inputs(bunny_render, {0, 2, LAST_TRIP})
+assert trips_b == FWD_LAUNCHES, trips_b
+trip_checks = {}
+for t in (0, 2, LAST_TRIP):
+    trip_checks[f"bunny_trip{t}"] = compare_trip(
+        f"bunny.json {SIZE}^2 trip {t}{' (the last)' if t == LAST_TRIP else ''}", kept_b.pop(t))
+del kept_b
+# the whole render by each route, in turns: bit-equal, the same counts
+route_walls = {"trip": [], "body": []}
+for route in ("trip", "body", "body", "trip"):
+    reset_counts()
+    (b_r, r_r), w_r = timed(lambda: bunny_render(route=route))
+    c_r = read_counts()
+    assert (int(r_r), c_r["treelet_closest_hit"]) == (FWD_SEGMENTS, FWD_LAUNCHES), (route, c_r)
+    assert c_r["trip_tail"] == c_r["trip_head"] == (FWD_LAUNCHES if route == "trip" else 0), c_r
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(b_r, key), getattr(buf, key)), f"{route} route: {key} differs"
+    route_walls[route].append(w_r)
+    del b_r
+route_info = {}
+for route in ("trip", "body"):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        bunny_render(route=route)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    wall_r = sum(route_walls[route]) / len(route_walls[route])
+
+    def dev_ms(name):
+        return sum(e.self_device_time_total for e in kern if name in e.key) / 1e3
+
+    r_busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    route_info[route] = dict(walls_s=route_walls[route], profiled_device_busy_ms=r_busy,
+                             busy_share=r_busy / 1e3 / wall_r, kernels=n_kern,
+                             kernels_per_trip=n_kern / FWD_LAUNCHES,
+                             sweep_ms=dev_ms("treelet_closest_hit_kernel"),
+                             trip_head_ms=dev_ms("trip_head_kernel"),
+                             trip_tail_ms=dev_ms("trip_tail_kernel"))
+    print(f"{route} route: walls {', '.join(f'{w:.3f}' for w in route_walls[route])} s "
+          f"({FWD_SEGMENTS / wall_r / 1e6:.3f} Mrays/s); "
+          + (f"profiled: device busy {r_busy:.1f} ms = {r_busy / 1e3 / wall_r:.1%} of the mean "
+             f"wall, {n_kern} kernels = {n_kern / FWD_LAUNCHES:.1f} a trip; the sweep "
+             f"{route_info[route]['sweep_ms']:.1f} ms, trip_head "
+             f"{route_info[route]['trip_head_ms']:.1f} ms, trip_tail "
+             f"{route_info[route]['trip_tail_ms']:.1f} ms" if r_busy > 0 else
+             "the profiler recorded no device time (not measured)") + f"  [{smi}]")
+print(f"the two routes' renders are bit-equal, {FWD_SEGMENTS} segments and {FWD_LAUNCHES} sweep "
+      f"launches each; body/trip mean wall "
+      f"{sum(route_walls['body']) / sum(route_walls['trip']):.2f}")
 
 # --- 5 -------------------------------------------------------------------
 phase("5 render parity, kernel vs twin: 256^2, 2 spp, 8 bounces")
@@ -608,6 +891,7 @@ d_launches = read_counts()
 d_peak = torch.cuda.max_memory_allocated() - mem0
 assert d_launches["treelet_closest_hit(payload=True)"] > 0, d_launches
 assert d_launches["treelet_closest_hit"] == 0 and d_launches["winner_step"] == 0, d_launches
+assert d_launches["trip_tail"] == 0, d_launches  # differentiable: the body route
 assert d_rays > n, d_rays
 assert bool(torch.isfinite(d_loss)), d_loss
 for k, g in d_grads.items():
@@ -902,8 +1186,10 @@ def drive_nee(name, calls):
         assert (rays2, trips2, read_counts()) == (rays, trips, counts), \
             f"{name}: segments, trips or launches moved between calls"
     wall = float(np.median(walls))
-    print(f"{name}: first call {first:.3f} s; {trips} trips, {rays} traced segments, launches "
-          f"{counts}; mean colour {[round(x, 4) for x in mean]}")
+    assert counts["trip_tail"] == 0 and integrator.render_route(nee_scene[name]) == "body"
+    print(f"{name}: first call {first:.3f} s; the body route (emitters: NEE); {trips} trips, "
+          f"{rays} traced segments, launches {counts}; mean colour "
+          f"{[round(x, 4) for x in mean]}")
     print(f"  calls 2-{calls + 1}: {', '.join(f'{w:.3f}' for w in walls)} s wall; median {wall:.3f} s = "
           f"{rays / wall / 1e6:.3f} traced Mrays/s  [{smi}]")
     np.save(os.path.join(OUT, f"{name[:-5]}_{NEE_SIZE}_{NEE_SPP[name]}spp.npy"),
@@ -1021,14 +1307,6 @@ def fresh_tracer(method="megakernel", size=SIZE):
                                   method=method)
 
 
-def timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 # one chunk of SPP: the chained render of phase 4, merged into zeroed buffers
 tracer = fresh_tracer()
 reset_counts()
@@ -1080,7 +1358,8 @@ for key in ("color", "normal", "depth"):
         bad = (a != b).reshape(a.shape[0], -1).any(dim=1).nonzero()[:5].flatten().tolist()
         raise AssertionError(f"streaming != megakernel in {key}, first pixels {bad}")
 mode_ratios = sorted(s / m for s, m in zip(mode_walls["streaming"], mode_walls["megakernel"]))
-print(f"path_trace x{MODE_PAIRS}, megakernel and streaming in turns: bit-equal, "
+print(f"path_trace x{MODE_PAIRS}, megakernel (the trip route) and streaming (the body route) "
+      f"in turns: bit-equal, "
       f"{pair_rays['megakernel']} segments in the last sample; streaming/megakernel wall "
       f"per pair: median {mode_ratios[MODE_PAIRS // 2 - 1]:.3f}-{mode_ratios[MODE_PAIRS // 2]:.3f}, range "
       f"{mode_ratios[0]:.3f}-{mode_ratios[-1]:.3f}; walls {mode_walls}")
@@ -1184,26 +1463,18 @@ CLI_W, CLI_H, CLI_SPP, CLI_BOUNCES = 1920, 1080, 10, 50  # bunny.json's own, the
 cli = {}
 st_b, la_b, png_b, wall_b = run_cli("bunny", "bunny.json", "--denoise")
 assert (st_b["resolution"], st_b["spp"]) == ([CLI_W, CLI_H], CLI_SPP), st_b
-# the in-process render keeps the sweep's rows of its first, third and last
-# trips, each over all CLI_W x CLI_H lanes
-trip_rows = {}
-
-
-def record_trip(*args, **kw):
-    record_trip.calls += 1
-    if record_trip.calls in (1, 3):
-        trip_rows[record_trip.calls - 1] = args[:2]
-    trip_rows["last"] = args[:2]
-    return sweep_kernel.treelet_closest_hit(*args, **kw)
-
-
-record_trip.calls = 0
+# the in-process render, through the trip route as the CLI's, keeps the
+# sweep's rows of its first, third and last trips, each over all
+# CLI_W x CLI_H lanes
+last_trip = la_b["treelet_closest_hit"] - 1
 reset_counts()
-buf_b, rays_b = tpupt_torch.render_image(
-    scene, desc.camera, CLI_W, CLI_H, spp=CLI_SPP, max_bounces=CLI_BOUNCES,
-    intersect_fn=functools.partial(intersect.intersect_scene_ids, closest_hit=record_trip))
+(buf_b, rays_b), cli_n_trips, cli_kept = record_trip_inputs(
+    lambda: tpupt_torch.render_image(scene, desc.camera, CLI_W, CLI_H, spp=CLI_SPP,
+                                     max_bounces=CLI_BOUNCES), {0, 2, last_trip})
+assert cli_n_trips == last_trip + 1, (cli_n_trips, la_b)
 assert st_b["rays"] == int(rays_b), (st_b["rays"], int(rays_b))
 assert la_b == {k: v for k, v in read_counts().items() if k in la_b}, (la_b, read_counts())
+assert la_b["trip_tail"] == la_b["treelet_closest_hit"], la_b
 dn_b = tpupt_torch.atrous_denoise(buf_b.color.reshape(CLI_H, CLI_W, 3),
                                   buf_b.normal.reshape(CLI_H, CLI_W, 3),
                                   buf_b.depth.reshape(CLI_H, CLI_W), desc.camera)
@@ -1212,15 +1483,15 @@ cli["bunny.json"] = dict(stats=st_b, launches=la_b, wall_s=wall_b)
 print(f"  {st_b['rays']} segments = the in-process render's; launches {la_b} = the in-process "
       f"render's; the PNG = its denoised display  [{smi}]")
 del buf_b, dn_b
-last_trip = record_trip.calls - 1
 cli_trips = {}
-for trip in (0, 2, "last"):
-    rows_t, act_t = trip_rows.pop(trip)
+for trip in (0, 2, last_trip):
+    rec = cli_kept.pop(trip)
+    rows_t, act_t = dict(zip(packets._ROW_KEYS, rec["rows"].unbind(0))), rec["act_p"]
     assert act_t.shape[0] == -(-CLI_W * CLI_H // packets.PACKET), act_t.shape  # every lane
-    name = f"trip {last_trip} (the last)" if trip == "last" else f"trip {trip}"
-    cli_trips[f"cli_bunny_trip{last_trip if trip == 'last' else trip}"] = compare_sweep(
+    name = f"trip {last_trip} (the last)" if trip == last_trip else f"trip {trip}"
+    cli_trips[f"cli_bunny_trip{trip}"] = compare_sweep(
         f"CLI render {CLI_W}x{CLI_H}, {name}", scene, rows_t, act_t)
-    del rows_t, act_t
+    del rows_t, act_t, rec
 
 st_s, la_s, png_s, wall_s = run_cli("bunny_streaming", "bunny.json", "--method", "streaming",
                                     "--spp", "2")
@@ -1320,6 +1591,7 @@ assert len(fit_losses) == FIT_STEPS and all(np.isfinite(fit_losses)), fit_losses
 assert fit_losses[-1] < fit_losses[0], fit_losses
 assert fit_launches["treelet_closest_hit(payload=True)"] > 0, fit_launches
 assert fit_launches["treelet_closest_hit"] == 0 and fit_launches["winner_step"] == 0, fit_launches
+assert fit_launches["trip_tail"] == 0, fit_launches  # differentiable: the body route
 for name in ("fuzz", "ior", "emission"):
     assert torch.equal(getattr(fitted.materials, name), getattr(scene.materials, name)), name
 for name in ("positions", "sphere_center", "sphere_radius"):
@@ -1445,6 +1717,8 @@ for chain in (True, False):
         parts.append(part)
         walls_b.append(wall_b)
     assert all(c["treelet_closest_hit"] > 0 for c in launches_b), launches_b
+    # each band's render takes the trip route, one trip_tail a sweep
+    assert all(c["trip_tail"] == c["treelet_closest_hit"] for c in launches_b), launches_b
     for key in ("color", "normal", "depth"):
         got = torch.cat([getattr(p[0], key) for p in parts])
         assert torch.equal(got, getattr(full_b, key)), f"bands != the full render in {key}"
@@ -1766,26 +2040,23 @@ def run_harness_config(name):
 
 
 def record_trips(name, scn, cam):
-    """One render at the config's settings with the sweep's rows of trips
-    0 and 2 kept: (buffers, rays, trips, {trip: (rows, act)}, peak bytes,
-    wall)."""
-    cfg, (w, h), kept = harness.CONFIGS[name], config_wh(name), {}
+    """One render at the config's settings, its wall and peak memory; then
+    the same render once more with the inputs of trips 0 and 2 kept:
+    (buffers, rays, trips, {trip: record}, peak bytes, wall)."""
+    cfg, (w, h) = harness.CONFIGS[name], config_wh(name)
 
-    def record(*args, **kw):
-        record.calls += 1
-        if record.calls in (1, 3):
-            kept[record.calls - 1] = args[:2]
-        return sweep_kernel.treelet_closest_hit(*args, **kw)
+    def render():
+        return tpupt_torch.render_image(scn, cam, w, h, spp=cfg["spp"], max_bounces=cfg["mb"],
+                                        rr_start=cfg["rr"])
 
-    record.calls = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    (buf, rays), wall = timed(lambda: tpupt_torch.render_image(
-        scn, cam, w, h, spp=cfg["spp"], max_bounces=cfg["mb"], rr_start=cfg["rr"],
-        intersect_fn=functools.partial(intersect.intersect_scene_ids, closest_hit=record)))
+    (buf, rays), wall = timed(render)
     peak = torch.cuda.max_memory_allocated() - mem0
-    return buf, int(rays), record.calls, kept, peak, wall
+    (buf2, rays2), trips, kept = record_trip_inputs(render, {0, 2})
+    assert int(rays2) == int(rays) and torch.equal(buf2.color, buf.color), name
+    return buf, int(rays), trips, kept, peak, wall
 
 
 def config_wh(name):
@@ -1820,12 +2091,21 @@ def twin_band(scn, rows, act_p, width):
 
 harness_info = {}
 harness_sweeps = {}
+# (rays, trips) of a render call of the mesh configs, as the body route
+# traces them (PERF.md §5), which the trip route must keep
+BODY_ROUTE_COUNTS = {"multimesh": (32_119_424, 122), "ajax": (10_925_373, 62),
+                     "ajax_hi": (10_930_056, 62)}
 for name in harness.CONFIGS:
     info, scn, cam = run_harness_config(name)
     harness_info[name] = info
     meshes = name in ("bunny", "multimesh", "ajax", "ajax_hi")
     assert (info["launches_per_call"]["treelet_closest_hit"] > 0) == meshes, (name, info)
     assert info["launches_per_call"]["treelet_any_hit"] == 0, (name, info)  # no mesh light
+    # the trip route on every forward config without emitters; cornell
+    # (sphere NEE) and diff (differentiable) take the body route
+    trip_route = name not in ("cornell", "diff")
+    assert (info["launches_per_call"]["trip_tail"] > 0) == trip_route, (name, info)
+    print(f"  {name}: the {'trip' if trip_route else 'body'} route", flush=True)
     if name not in ("multimesh", "ajax", "ajax_hi"):
         del scn
         continue
@@ -1835,6 +2115,8 @@ for name in harness.CONFIGS:
     per_call = info["rays"] // (info["calls"] - 1)
     assert rays == per_call and trips == info["launches_per_call"]["treelet_closest_hit"], \
         (name, rays, per_call, trips, info["launches_per_call"])
+    assert trips == info["launches_per_call"]["trip_tail"], (name, info["launches_per_call"])
+    assert (rays, trips) == BODY_ROUTE_COUNTS[name], (name, rays, trips)
     for key in ("color", "normal", "depth"):
         assert bool(torch.isfinite(getattr(buf, key)).all()), (name, key)
     w, h = config_wh(name)
@@ -1858,7 +2140,10 @@ for name in harness.CONFIGS:
             buf.color.reshape(h, w, 3).cpu().numpy().astype(np.float16))
     del buf
     for trip in (0, 2):
-        rows_t, act_t = kept.pop(trip)
+        rec = kept.pop(trip)
+        trip_checks[f"{name}_trip{trip}"] = compare_trip(f"{name} {w}x{h} trip {trip}", rec)
+        rows_t, act_t = dict(zip(packets._ROW_KEYS, rec["rows"].unbind(0))), rec["act_p"]
+        del rec
         rows_b, act_b, r0, nr = twin_band(scn, rows_t, act_t, w)
         where = "the whole trip" if nr == h else f"rows {r0}-{r0 + nr - 1} of {h}"
         harness_sweeps[f"{name}_trip{trip}"] = res_t = compare_sweep(
@@ -1993,7 +2278,27 @@ report = {
         device_ms=shadow_area["device_ms"],
         inputs={"bunny_shadow": shadow_bunny, "bunny_mixed_shadow": shadow_mixed,
                 "cornell_area_bounce0": shadow_area, "ajax_white_hi_shadow": hi_any},
-    )],
+    )] + [dict(
+        # not Pallas in the JAX package: XLA fuses its trip body (the sphere
+        # pass, the sweep's rows; the hit record, _bounce_body without NEE,
+        # the fold and restart) into a few kernels inside the while_loop of
+        # _render_chained (tpupt/render/integrator.py:1001) and trace_sample
+        # (:804); the top-level times are bunny's trip 2, 1024^2 lanes
+        name=name, route="cuda", source="tpupt_torch/accel/csrc/trip_kernels.cu",
+        replaces=replaces, launches=launches[name],
+        max_abs_err=max(c[name]["max_abs_err"] for c in trip_checks.values()),
+        ms=trip_checks["bunny_trip2"][name]["ms"],
+        device_ms=trip_checks["bunny_trip2"][name]["device_ms"],
+        plain_ms=trip_checks["bunny_trip2"][name]["plain_ms"],
+        bound_ms=trip_checks["bunny_trip2"][name]["bound_ms"],
+        bound_by=trip_checks["bunny_trip2"][name]["bound_by"], library_ms=None,
+        cli_launches={k: v["launches"][name] for k, v in cli.items()},
+        fit_step_launches=fit_per_step[name], band_launches=band_launches(name),
+        harness_launches_per_call={k: v["launches_per_call"][name]
+                                   for k, v in harness_info.items()},
+        inputs={k: dict(v[name], work=v["work"]) for k, v in trip_checks.items()},
+    ) for name, replaces in (("trip_head", "tpupt/render/intersect.py:98"),
+                             ("trip_tail", "tpupt/render/integrator.py:499"))],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
     "off_path": [dict(
@@ -2008,7 +2313,7 @@ report = {
     )],
     "render": dict(rays=rays, wall_s=wall, walls_s=walls, mrays_per_s=rays / wall / 1e6,
                    first_call_s=first_s, profiled_device_busy_ms=busy_ms,
-                   profiled_sweep_ms=sweep_ms),
+                   profiled_sweep_ms=sweep_ms, routes_in_turns=route_info),
     "fwd_bwd": dict(rays=d_rays, wall_s=d_wall, walls_s=d_walls, mrays_per_s=d_rays / d_wall / 1e6,
                     forward_backward_s=d_split,
                     first_call_s=d_first_s, peak_bytes=d_peak, launches=d_launches,

@@ -6,7 +6,8 @@ substitutions, each of which must match the sources exactly once, built
 with the library's own nvcc flags under ``build/tpupt_torch_kernels/
 variants/``, so the shipped sources keep one value of every choice.
 ``torch_anyhit_cta.py --variants`` and ``torch_winner_step.py --sweep``
-use it.
+use it; ``torch_trip_head.py`` builds another checkout's sources with no
+substitution (``csrc``).
 """
 
 import hashlib
@@ -14,14 +15,16 @@ import os
 import subprocess
 
 
-def build(kernels, subs, extra_flags=()):
-    """Path of the library built from ``kernels``' sources with each
-    (old, new) of ``subs`` applied, and ``extra_flags`` added; built once
-    per sources, substitutions and flags."""
-    names = sorted(n for n in os.listdir(kernels._CSRC) if n.endswith(".cu"))
+def build(kernels, subs, extra_flags=(), csrc=None):
+    """Path of the library built from ``kernels``' sources (or those in
+    the directory ``csrc``) with each (old, new) of ``subs`` applied, and
+    ``extra_flags`` added; built once per sources, substitutions and
+    flags."""
+    csrc = csrc or kernels._CSRC
+    names = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
     text = {}
     for n in names:
-        with open(os.path.join(kernels._CSRC, n)) as fh:
+        with open(os.path.join(csrc, n)) as fh:
             text[n] = fh.read()
     for old, new in subs:
         hits = [n for n in names if old in text[n]]

@@ -52,6 +52,7 @@ def test_import_keeps_jax_out():
         "import tpupt_torch.accel.sweep_kernel, tpupt_torch.accel.step_kernel\n"
         "import tpupt_torch.diff.params, tpupt_torch.denoise.atrous, tpupt_torch.scene.bake\n"
         "import tpupt_torch.render.progressive, tpupt_torch.render.wavefront\n"
+        "import tpupt_torch.render.trip_kernel\n"
         "import tpupt_torch.cli.main, tpupt_torch.interactive.viewer\n"
         "import tpupt_torch.utils.image, tpupt_torch.utils.timer, tpupt_torch.utils.debug\n"
         "import tpupt_torch.dist.sharding, tpupt_torch.dist.bootstrap\n"

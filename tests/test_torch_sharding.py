@@ -12,7 +12,8 @@ renders with the same port.
   chained (RNG and camera key off the global pixel; a band's lanes are the
   same lanes, and the gather is an all-reduce of bands padded with -0.0,
   which keeps every bit, the sign of zero too).
-* Each rank's hit passes saw only its band's lanes.
+* Each rank's trips (the forward render's trip route, ``trip_head``) saw
+  only its band's lanes.
 * The sharded gradients match one process's at test_sharding.py's rtol
   1e-4, atol 1e-5, with the per-bounce placement on ``sphere_scene`` and
   the post-hoc one on ``full_scene``: the sums run in another order.  The
@@ -50,7 +51,7 @@ from tpupt_torch.dist.sharding import (
     render_image_sharded,
     render_loss_and_grads_sharded,
 )
-from tpupt_torch.render import integrator
+from tpupt_torch.render import integrator, trip_kernel
 from tpupt_torch.render.integrator import render_image
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.procedural import icosphere
@@ -145,17 +146,17 @@ def _rank_cases(rank):
     out["chained"] = (buf.color.numpy(), int(rays))
 
     lanes = []
-    traced = integrator.intersect_scene_ids
+    head = trip_kernel.trip_head
 
-    def counting(scene, ro, *args, **kw):
-        lanes.append(ro.x.shape[0])
-        return traced(scene, ro, *args, **kw)
+    def counting(plan, F, *args):
+        lanes.append(F.shape[1])
+        return head(plan, F, *args)
 
-    integrator.intersect_scene_ids = counting
+    trip_kernel.trip_head = counting
     try:
         buf, _ = render_image_sharded(full, cam, W, H, 1, max_bounces=3)
     finally:
-        integrator.intersect_scene_ids = traced
+        trip_kernel.trip_head = head
     out["lanes"] = (sorted(set(lanes)), buf.color.shape[0])
 
     # bounces, counted as differentiable hit passes: of this rank's band
@@ -308,7 +309,7 @@ def test_bands_that_end_apart_pair_up(ranks, placement):
 
 
 def test_sharded_output_actually_sharded(ranks):
-    """Every hit pass of rank r traced its band's W * H / 4 lanes only; the
+    """Every trip of rank r traced its band's W * H / 4 lanes only; the
     returned buffers hold the whole image."""
     for res in ranks:
         assert res["lanes"] == ([W * H // WORLD], W * H)

@@ -58,7 +58,8 @@ def library_path(extra_flags=()) -> str:
 
 def build(extra_flags=()) -> str:
     """Compile the kernels if their library is missing; returns its path.
-    nvcc's register and shared-memory report goes to ``<library>.log``.
+    One nvcc per source, all started together, then one link.  nvcc's
+    register and shared-memory report goes to ``<library>.log``.
     ``extra_flags`` (e.g. ``-DTPUPT_SWEEP_PROFILE``) builds a variant."""
     path = library_path(extra_flags)
     if os.path.exists(path):
@@ -66,12 +67,26 @@ def build(extra_flags=()) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, *srcs, "-o", tmp],
-                          capture_output=True, text=True, timeout=900)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, *extra_flags, "-c", s, "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    failed = [(s, p.returncode) for s, p in zip(srcs, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, *objs, "-o", tmp],
+                              capture_output=True, text=True, timeout=900)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     with open(path + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        fh.write("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n" + "".join(logs)[-6000:])
     os.replace(tmp, path)
     return path
 
@@ -97,6 +112,10 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_treelet_any_hit.argtypes = [_P] * 12 + [_I, _I, _I] + [_P] * 2
     lib.tpupt_winner_step.restype = _I
     lib.tpupt_winner_step.argtypes = [_P] * 11 + [_I, _I, _I] + [_P] * 7
+    lib.tpupt_trip_head.restype = _I
+    lib.tpupt_trip_head.argtypes = [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P]
+    lib.tpupt_trip_tail.restype = _I
+    lib.tpupt_trip_tail.argtypes = [_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P] + [_I] * 8 + [_P, _P]
     lib.tpupt_rcp_check.restype = _I
     lib.tpupt_rcp_check.argtypes = [_P, _P]
     lib.tpupt_cuda_error_string.restype = ctypes.c_char_p

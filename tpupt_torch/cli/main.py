@@ -71,6 +71,14 @@ def resolve_scene_path(filename: str) -> str:
     raise SystemExit(f"Cannot find scene file {filename!r}")
 
 
+def _launch_counts() -> dict[str, int]:
+    """Every hand-written kernel's launches so far in this process."""
+    from tpupt_torch.accel import sweep_kernel
+    from tpupt_torch.render import trip_kernel
+
+    return {**sweep_kernel.launch_counts(), **trip_kernel.launch_counts()}
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
 
@@ -142,9 +150,7 @@ def main(argv=None) -> int:
     # allocator warm-up), apart from the steady rate.
     chunk = max(1, args.chunk)
     if cuda:
-        from tpupt_torch.accel.sweep_kernel import launch_counts
-
-        launches_before = launch_counts()
+        launches_before = _launch_counts()
     total_rays = 0
     chunk_stats = []  # (seconds, ray segments) per chunk
     t0 = time.perf_counter()
@@ -159,7 +165,7 @@ def main(argv=None) -> int:
             if args.checkpoint and tracer.iteration < desc.spp:
                 tracer.save_checkpoint(args.checkpoint)
     trace_secs = time.perf_counter() - t0
-    launched = ({k: n - launches_before[k] for k, n in launch_counts().items()} if cuda
+    launched = ({k: n - launches_before[k] for k, n in _launch_counts().items()} if cuda
                 else None)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

@@ -33,16 +33,22 @@ def camera_from_matrix(camera_to_world, vfov) -> Camera:
     return Camera(camera_matrix=torch.from_numpy(m), vfov=float(np.float32(vfov)))
 
 
+def viewport(camera: Camera, width: int, height: int):
+    """The viewport's (width, height) as numpy float32 scalars, rounded on
+    the host as the JAX package rounds them."""
+    vfov = np.float32(camera.vfov)
+    aspect = np.float32(width / height)
+    viewport_h = np.float32(2.0) * np.tan(vfov / np.float32(2.0))
+    return aspect * viewport_h, viewport_h
+
+
 def generate_rays(camera: Camera, width: int, height: int, fx: torch.Tensor,
                   fy: torch.Tensor):
     """Primary rays through (possibly jittered) float pixel coordinates
     ``fx``, ``fy`` (N,).  Returns (origins, unit directions) as Vec3s on
     ``fx``'s device."""
     dev = fx.device
-    vfov = np.float32(camera.vfov)
-    aspect = np.float32(width / height)
-    viewport_h = np.float32(2.0) * np.tan(vfov / np.float32(2.0))
-    viewport_w = aspect * viewport_h
+    viewport_w, viewport_h = viewport(camera, width, height)
 
     # divisors as device tensors: a true division (CUDA turns a division
     # by a host scalar into a multiply by its reciprocal)

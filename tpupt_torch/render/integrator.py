@@ -11,6 +11,15 @@ path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
 is that of the per-sample loop, with the same ray count.  The port runs
 this as one flat loop with a host check for live lanes on every trip.
 
+Two routes run the loops (``render_route``).  A forward render of a scene
+without emitters through the default hit pass takes the trip route: per
+trip the CUDA kernels ``trip_kernel.trip_head`` and ``trip_tail`` around
+the closest-hit sweep, over the lane state in SoA device buffers, and one
+4-byte read of the lanes left (``_run_trips``).  Everything else takes the
+body route, ``_bounce_body`` in torch, which the trip route equals bit for
+bit (any other ``intersect_fn``, even ``functools.partial(
+intersect_scene_ids)``, takes it).
+
 Per sample (``chain_samples=False``, and every differentiable render): a
 loop over samples, each one ``trace_sample`` folded in by ``accumulate``.
 A forward ``trace_sample`` is a flat bounce loop over the closest-hit
@@ -60,6 +69,7 @@ from tpupt_torch.core.types import (
     table_rows,
 )
 from tpupt_torch.core.vec import Vec3
+from tpupt_torch.accel import sweep_kernel
 from tpupt_torch.diff.overlap import psum_in_backward
 from tpupt_torch.render.intersect import (
     background_color,
@@ -77,6 +87,7 @@ from tpupt_torch.render.materials import (
     shade,
 )
 from tpupt_torch.sampling.rng import bounce_counter, jitter_counters, pixel_seed, uniform
+from tpupt_torch.render import trip_kernel as tk
 from tpupt_torch.scene.bake import rebake_treelets
 from tpupt_torch.utils import debug
 
@@ -423,72 +434,164 @@ def accumulate(buffers: RenderBuffers, color, normal, depth) -> RenderBuffers:
     )
 
 
+def _chain_start(pix):
+    """The chained loop's per-lane counters and accumulators at the start:
+    finished samples ``k``, traced segments, ``done``, and the running
+    averages of colour, normal and depth."""
+    zf = torch.zeros(pix.shape, device=pix.device)
+    zi = torch.zeros_like(pix)
+    return dict(k=zi, segs=zi, done=torch.zeros_like(pix, dtype=torch.bool),
+                color=Vec3(zf, zf, zf), normal=Vec3(zf, zf, zf), depth=zf)
+
+
+def _chain_step(scene, camera, width, height, pix, it0, spp, max_bounces, st, st2, seed, bounce,
+                ch):
+    """The fold and restart of one trip of the chained loop, after the
+    bounce body took ``st`` to ``st2``: a lane whose path ended (killed, or
+    alive at the bounce cap) folds its sample into its (n-1)/n averages in
+    ``ch`` and, while it has samples left, restarts on a fresh primary ray.
+    Returns (state, seed, bounce, ch) for the next trip."""
+    ch = dict(ch, segs=ch["segs"] + st["alive"].long())
+    done, k = ch["done"], ch["k"]
+    b2 = bounce + 1
+    capped = st2["alive"] & (b2 >= max_bounces)
+    ended = ~done & (~st2["alive"] | capped)
+
+    # fold the finished sample: radiance, plus the raw throughput of
+    # paths cut by the bounce cap
+    final = vec.where(capped, st2["radiance"] + st2["color"], st2["radiance"])
+    git = it0 + k  # global iteration index of the finished sample
+    nf = (git + 1).to(torch.float32)
+    first = git == 0
+
+    def acc1(old, new):
+        mixed = (old * (nf - 1.0) + new) / nf
+        return torch.where(ended, torch.where(first, new, mixed), old)
+
+    def acc3(old, new):
+        return Vec3(acc1(old.x, new.x), acc1(old.y, new.y), acc1(old.z, new.z))
+
+    ch["color"] = acc3(ch["color"], final)
+    ch["normal"] = acc3(ch["normal"], st2["normal"])
+    ch["depth"] = acc1(ch["depth"], st2["depth"])
+
+    k = ch["k"] = torch.where(ended, k + 1, k)
+    ch["done"] = done | (ended & (k >= spp))
+    need = ended & (k < spp)
+
+    fresh, fresh_seed = _fresh_state(scene, camera, width, height, pix, it0 + k)
+    st = {}
+    for key in fresh:
+        if key == "alive":
+            st[key] = torch.where(need, True, st2[key] & ~ended)
+        elif isinstance(fresh[key], Vec3):
+            st[key] = vec.where(need, fresh[key], st2[key])
+        else:
+            st[key] = torch.where(need, fresh[key], st2[key])
+    return st, torch.where(need, fresh_seed, seed), torch.where(need, 0, b2), ch
+
+
+def _chain_buffers(ch, it0, spp) -> RenderBuffers:
+    return RenderBuffers(color=ch["color"].to_array(), normal=ch["normal"].to_array(),
+                         depth=ch["depth"], iteration=it0 + spp)
+
+
 def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
                     start_iteration, intersect_fn, any_hit=None, row0=0, rows=None):
     """Forward render with per-lane sample chaining, one flat loop, over
-    the band of ``rows`` rows from ``row0`` (the whole image by default)."""
-    dev = scene.device
-    pix = _band_pixels(width, height if rows is None else rows, row0, dev)
+    the band of ``rows`` rows from ``row0`` (the whole image by default),
+    through ``_bounce_body`` (the body route)."""
+    pix = _band_pixels(width, height if rows is None else rows, row0, scene.device)
     it0 = int(start_iteration)
-
     st, seed = _fresh_state(scene, camera, width, height, pix, it0)
-    zf = st["depth"] * 0.0
-    zi = torch.zeros_like(pix)
-    bounce, k, segs = zi, zi, zi  # per-lane bounce, finished samples, segments
-    done = torch.zeros_like(pix, dtype=torch.bool)
-    acc_color = acc_normal = Vec3(zf, zf, zf)
-    acc_depth = zf
-
+    bounce, ch = torch.zeros_like(pix), _chain_start(pix)
     for _ in range(spp * max_bounces):  # every lane is done by this bound
-        if not bool((~done).any()):
+        if not bool((~ch["done"]).any()):
             break
         st2 = _bounce_body(scene, seed, st, bounce, rr_start, intersect_fn, any_hit=any_hit)
-        segs = segs + st["alive"].long()
-        b2 = bounce + 1
-        capped = st2["alive"] & (b2 >= max_bounces)
-        ended = ~done & (~st2["alive"] | capped)
+        st, seed, bounce, ch = _chain_step(scene, camera, width, height, pix, it0, spp,
+                                           max_bounces, st, st2, seed, bounce, ch)
+    return _chain_buffers(ch, it0, spp), ch["segs"].sum()
 
-        # fold the finished sample: radiance, plus the raw throughput of
-        # paths cut by the bounce cap
-        final = vec.where(capped, st2["radiance"] + st2["color"], st2["radiance"])
-        git = it0 + k  # global iteration index of the finished sample
-        nf = (git + 1).to(torch.float32)
-        first = git == 0
 
-        def acc1(old, new):
-            mixed = (old * (nf - 1.0) + new) / nf
-            return torch.where(ended, torch.where(first, new, mixed), old)
+def render_route(scene: SceneArrays, differentiable: bool = False, intersect_fn=None) -> str:
+    """Which loop a render takes, chosen from the call before any launch:
+    "trip" (``trip_kernel``: the sphere pass and the sweep's rows in
+    ``trip_head``, the hit record, shading, roulette and, chained, the fold
+    and restart in ``trip_tail``) for a forward render of a scene without
+    emitters through the default hit pass; "body" (``_bounce_body``) for
+    NEE scenes, whose shadow rays need the any-hit sweep between shading
+    and emission, for differentiable renders, and for any other
+    ``intersect_fn`` (the reference intersectors, which share no code with
+    what they check, or a sweep passed in)."""
+    if differentiable or scene.has_nee or intersect_fn not in (None, intersect_scene_ids):
+        return "body"
+    return "trip"
 
-        def acc3(old, new):
-            return Vec3(acc1(old.x, new.x), acc1(old.y, new.y), acc1(old.z, new.z))
 
-        acc_color = acc3(acc_color, final)
-        acc_normal = acc3(acc_normal, st2["normal"])
-        acc_depth = acc1(acc_depth, st2["depth"])
+def _trip_plan(scene, camera, width, height, *, spp, max_bounces, rr_start, iteration, chained,
+               row0=0, rows=None) -> tk.TripPlan:
+    """The trip route's plan of a render of the band of ``rows`` rows
+    from ``row0`` (``rows`` None: the whole image), with the body route's
+    functions that the twin of ``trip_tail`` is assembled from."""
+    pix = _band_pixels(width, height if rows is None else rows, row0, scene.device)
+    camera = camera.to(scene.device)
 
-        k = torch.where(ended, k + 1, k)
-        done = done | (ended & (k >= spp))
-        need = ended & (k < spp)
+    def body(st, seed, bounce, hit):
+        return _bounce_body(scene, seed, st, bounce, rr_start, lambda *_: hit)
 
-        fresh, fresh_seed = _fresh_state(scene, camera, width, height, pix, it0 + k)
-        st = {}
-        for key in fresh:
-            if key == "alive":
-                st[key] = torch.where(need, True, st2[key] & ~ended)
-            elif isinstance(fresh[key], Vec3):
-                st[key] = vec.where(need, fresh[key], st2[key])
-            else:
-                st[key] = torch.where(need, fresh[key], st2[key])
-        seed = torch.where(need, fresh_seed, seed)
-        bounce = torch.where(need, 0, b2)
+    def fold(st, st2, seed, bounce, ch):
+        return _chain_step(scene, camera, width, height, pix, iteration, spp, max_bounces, st, st2,
+                           seed, bounce, ch)
 
-    buffers = RenderBuffers(
-        color=acc_color.to_array(),
-        normal=acc_normal.to_array(),
-        depth=acc_depth,
-        iteration=it0 + spp,
-    )
-    return buffers, segs.sum()
+    return tk.TripPlan(scene, camera, width, height, row0 * width, pix, spp, max_bounces,
+                       rr_start, iteration, chained, body, fold)
+
+
+def _trip_start(plan: tk.TripPlan):
+    """(F, I) at the trip loop's start: every lane on its first sample's
+    primary ray (``_fresh_state``), the counters at zero."""
+    st, seed = _fresh_state(plan.scene, plan.camera, plan.width, plan.height, plan.pix,
+                            plan.iteration)
+    return tk.pack_state(st, seed, torch.zeros_like(plan.pix), _chain_start(plan.pix))
+
+
+def _run_trips(plan):
+    """The trip route's loop: per trip ``trip_head``, the closest-hit
+    sweep on its packed rows (scenes with a mesh), ``trip_tail``, and one
+    4-byte read of the lanes still to trace.  Returns the lane state (F,
+    I) after the last trip."""
+    scene = plan.scene
+    F, I = _trip_start(plan)
+    buf = tk.trip_buffers(plan)
+    remaining = plan.n
+    for _ in range(plan.trips_bound):
+        if remaining == 0:
+            break
+        tk.trip_head(plan, F, I, buf)
+        sweep = None
+        if plan.mesh:
+            sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, scene.tre_min,
+                                                     scene.tre_max, scene.tre_tris,
+                                                     scene.s_leaf_size)
+        tk.trip_tail(plan, F, I, buf, sweep)
+        # TPUPT_DEBUG=1 guards on the trip's outputs (nothing when unset)
+        debug.check_finite("bounce radiance/throughput", *tk.rows(F, tk.RADIANCE + tk.COLOR))
+        debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
+        remaining = int(buf.count)
+    return F, I
+
+
+def _render_chained_trips(scene, camera, width, height, spp, max_bounces, rr_start,
+                          start_iteration, row0=0, rows=None):
+    """``_render_chained`` through the trip kernels."""
+    plan = _trip_plan(scene, camera, width, height, spp=spp, max_bounces=max_bounces,
+                      rr_start=rr_start, iteration=int(start_iteration), chained=True, row0=row0,
+                      rows=rows)
+    chain = tk.unpack_state(*_run_trips(plan))["chain"]
+    # a row of the lane state is a view: a copy lets the state go
+    chain["depth"] = chain["depth"].clone()
+    return _chain_buffers(chain, plan.iteration, spp), chain["segs"].sum()
 
 
 def _partition_perm(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -540,8 +643,14 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     per bounce on the scene and once on the slot table, or once on the
     scene before the loop (post-hoc); see ``diff.overlap``.  Per bounce,
     every rank of the group runs as many bounces as the rank whose band
-    lives longest, so that the ranks' collectives pair up."""
+    lives longest, so that the ranks' collectives pair up.
+
+    A forward sample of a scene without emitters through the default hit
+    pass runs the trip kernels (``render_route``)."""
     rows = height if rows is None else rows
+    if render_route(scene, differentiable, intersect_fn) == "trip":
+        return _trace_sample_trips(scene, camera, width, height, iteration, max_bounces,
+                                   rr_start, row0, rows)
     tri_table = None
     sharded = differentiable and grad_psum_axis is not None
     per_bounce = sharded and grad_psum_overlap
@@ -566,6 +675,21 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     # paths alive at the bounce cap add their raw throughput
     final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
     return final.to_array(), state["normal"].to_array(), state["depth"], rays
+
+
+@torch.no_grad()
+def _trace_sample_trips(scene, camera, width, height, iteration, max_bounces, rr_start, row0,
+                        rows):
+    """The forward ``trace_sample`` through the trip kernels."""
+    plan = _trip_plan(scene, camera, width, height, spp=1, max_bounces=max_bounces,
+                      rr_start=rr_start, iteration=int(iteration), chained=False, row0=row0,
+                      rows=rows)
+    out = tk.unpack_state(*_run_trips(plan))
+    state = out["state"]
+    # paths alive at the bounce cap add their raw throughput
+    final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
+    return (final.to_array(), state["normal"].to_array(), state["depth"].clone(),
+            out["chain"]["segs"].sum())
 
 
 def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
@@ -625,7 +749,11 @@ def render_image(
 
     ``row0``/``rows`` render the band of ``rows`` rows from ``row0`` (the
     buffers hold width * rows pixels); ``grad_psum_axis`` and
-    ``grad_psum_overlap`` are ``trace_sample``'s."""
+    ``grad_psum_overlap`` are ``trace_sample``'s.
+
+    ``render_route`` picks the loop: the trip kernels for a forward render
+    of a scene without emitters through the default hit pass, else
+    ``_bounce_body``."""
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
@@ -639,6 +767,9 @@ def render_image(
         if not chain_samples:
             return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
                                    start_iteration, False, intersect_fn, any_hit, **band)
+        if render_route(scene, False, intersect_fn) == "trip":
+            return _render_chained_trips(scene, camera, width, height, spp, max_bounces,
+                                         rr_start, start_iteration, **band)
         return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
                                start_iteration, intersect_fn or intersect_scene_ids, any_hit,
                                **band)

@@ -141,15 +141,22 @@ def intersect_scene_ids(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, active,
     ``packets.intersect_treelets``); the default is the CUDA kernel on the
     card and its twin on the CPU."""
     n = ro.x.shape[0]
-    t_best, kind, obj_id, prim_id = _blank_ids(n, ro.x.device)
-    t_best, kind, obj_id, prim_id, point, normal, front, mat = _sphere_pass(
-        scene, ro, rd, t_min, active, t_best, kind, obj_id, prim_id
-    )
-
+    sphere = _sphere_pass(scene, ro, rd, t_min, active, *_blank_ids(n, ro.x.device))
+    mesh = None
     if _has_mesh(scene):
-        t_mesh, slot, ex = intersect_treelets(
-            scene, ro, rd, t_min, t_best, active, closest_hit=closest_hit
-        )
+        mesh = intersect_treelets(scene, ro, rd, t_min, sphere[0], active,
+                                  closest_hit=closest_hit)
+    return hit_record(scene, ro, rd, sphere, mesh)
+
+
+def hit_record(scene: SceneArrays, ro: Vec3, rd: Vec3, sphere, mesh):
+    """The forward pass's (ids, Hit) from the sphere pass's fold
+    (``_sphere_pass``'s 8-tuple) and the sweep's winner (``mesh`` = (t,
+    slot, extras) of ``packets.intersect_treelets``, or None for a scene
+    without meshes): the triangle half of the hit record."""
+    t_best, kind, obj_id, prim_id, point, normal, front, mat = sphere
+    if mesh is not None:
+        t_mesh, slot, ex = mesh
         take = slot >= 0
         t_best = torch.where(take, t_mesh, t_best)
         kind = torch.where(take, PRIM_TRIANGLE, kind)
