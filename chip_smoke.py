@@ -8,9 +8,11 @@ render with respect to every scene parameter, holds it against the twin's
 at 256^2 and runs the denoiser's backward pass.  Then next-event
 estimation: the any-hit shadow kernels against their twin on sparse,
 mixed and dense packets (and both forms of the closest-hit kernel on the
-area-light scene's own rays), the two Cornell
-scenes rendered at BASELINE config 2's size (held against the twins at
-128^2), and a fwd+bwd step on the area-light Cornell box.  Then the user's
+area-light scene's own rays), the two Cornell scenes rendered at
+BASELINE config 2's size on the trip route (trip_head, trip_nee, the
+sweeps and trip_tail's NEE mode), bit-equal to the ``_bounce_body`` route
+in turns, the trip kernels held to their twins on recorded trips of both
+and of sixteen lamps, and a fwd+bwd step on the area-light Cornell box.  Then the user's
 surfaces: the progressive engine (``PathTracer``) on the bunny render, its
 streaming mode bit-equal to the megakernel and the sweep on a compacted
 wavefront bounce; the CLI in subprocesses at the scenes' own settings,
@@ -46,8 +48,8 @@ it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
   * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
     its launches on its main path (the forward render; the fwd+bwd step
-    for the payload form; the cornell_area render for the any-hit kernel),
-    and the trip kernels' (the forward render),
+    for the payload form; the cornell_area render for the any-hit kernel
+    and trip_nee), and the trip kernels' (the forward render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
     in a fit step and in each of phase 16's band renders,
@@ -82,7 +84,7 @@ sys.path.insert(0, ROOT)
 import tpupt_torch  # noqa: E402  (needs the repository beside this script)
 from tpupt_torch.accel import kernels, packets, step_kernel, sweep_kernel  # noqa: E402
 from tpupt_torch.bench import harness  # noqa: E402
-from tpupt_torch.core.camera import generate_rays, pixel_centers  # noqa: E402
+from tpupt_torch.core.camera import generate_rays, make_camera, pixel_centers  # noqa: E402
 from tpupt_torch.core.vec import Vec3  # noqa: E402
 from tpupt_torch.cpu_ref.renderer import intersect_scene_ids_brute, render_image_ref  # noqa: E402
 from tpupt_torch.diff.fit import fit_scene, render_loss  # noqa: E402
@@ -249,41 +251,57 @@ def timed(fn):
 
 
 HEAD_OUT = ("hrec", "hint", "rows", "act_p")  # the TripBuffers trip_head writes
+# the TripBuffers trip_nee writes
+NEE_OUT = ("alive_next", "nee_contrib", "nee_mask", "nee_rows")
 
 
-def head_out(buf):
-    return {k: None if getattr(buf, k) is None else getattr(buf, k).clone() for k in HEAD_OUT}
+def head_out(buf, keys=HEAD_OUT):
+    return {k: None if getattr(buf, k) is None else getattr(buf, k).clone() for k in keys}
 
 
 def record_trip_inputs(render, keep):
     """``render()`` with the inputs of its trips ``keep`` (0 = the first)
-    kept, cloned as trip_head and trip_tail receive them: the lane state
-    before the trip, trip_head's buffers before (``pre``, the earlier
-    trips' values in dead lanes) and after it, the sweep's outputs.
-    Returns (render()'s result, trips, {trip: record})."""
-    kept, heads, calls = {}, [0], [0]
-    head, tail = trip_kernel.trip_head, trip_kernel.trip_tail
+    kept, cloned as the trip kernels receive them: the lane state before
+    the trip (``F``, ``I``), trip_head's buffers before (``pre``, the
+    earlier trips' values in dead lanes) and after it, the sweep's outputs;
+    on a trip of a scene with emitters also trip_nee's buffers before it
+    (``nee_pre``) and after it (``nee``), the state after it (``F2``,
+    ``I2``) and the any-hit sweep's output (``occ``).  Returns (render()'s
+    result, trips, {trip: record})."""
+    kept, n = {}, {"head": 0, "nee": 0, "tail": 0}
+    head, nee, tail = trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail
 
     def recording_head(plan, F, I, buf):
-        if heads[0] in keep:
-            kept[heads[0]] = dict(pre=head_out(buf))
-        heads[0] += 1
+        if n["head"] in keep:
+            kept[n["head"]] = dict(plan=plan, F=F.clone(), I=I.clone(), pre=head_out(buf))
+        n["head"] += 1
         return head(plan, F, I, buf)
 
-    def recording(plan, F, I, buf, sweep=None):
-        if calls[0] in keep:
-            kept[calls[0]].update(
-                plan=plan, F=F.clone(), I=I.clone(), **head_out(buf),
-                sweep=None if sweep is None else tuple(o.clone() for o in sweep))
-        calls[0] += 1
-        return tail(plan, F, I, buf, sweep)
+    def recording_nee(plan, F, I, buf, sweep=None):
+        if n["nee"] in keep:
+            kept[n["nee"]].update(**head_out(buf), nee_pre=head_out(buf, NEE_OUT),
+                                  sweep=None if sweep is None else tuple(o.clone() for o in sweep))
+        n["nee"] += 1
+        return nee(plan, F, I, buf, sweep)
 
-    trip_kernel.trip_head, trip_kernel.trip_tail = recording_head, recording
+    def recording_tail(plan, F, I, buf, sweep=None, occ=None):
+        if n["tail"] in keep:
+            if plan.nee:
+                kept[n["tail"]].update(F2=F.clone(), I2=I.clone(), nee=head_out(buf, NEE_OUT),
+                                       occ=None if occ is None else occ.clone())
+            else:
+                kept[n["tail"]].update(
+                    **head_out(buf), sweep=None if sweep is None else tuple(o.clone() for o in sweep))
+        n["tail"] += 1
+        return tail(plan, F, I, buf, sweep, occ)
+
+    trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail = (
+        recording_head, recording_nee, recording_tail)
     try:
         out = render()
     finally:
-        trip_kernel.trip_head, trip_kernel.trip_tail = head, tail
-    return out, calls[0], kept
+        trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail = head, nee, tail
+    return out, n["tail"], kept
 
 
 def events_ms(restore, fn, reps):
@@ -328,6 +346,11 @@ def kernel_ms(restore, fn, reps):
 # trip_tail per live lane (the hit record, background or shading, roulette)
 # and per lane that folds a sample and restarts
 HEAD_SPHERE_FLOPS, TAIL_LIVE_FLOPS, TAIL_FOLD_FLOPS = 120, 320, 80
+# trip_nee per live lane (the hit record, background or shading, the MIS
+# weight), per live lane and NEE term (a light sample, sinf and cosf at 20
+# each, its contribution), per live lane, term and sphere object (the
+# shadow ray's quadratic); the NEE tail per live lane and term (the sum)
+NEE_LIVE_FLOPS, NEE_TERM_FLOPS, NEE_SPHERE_FLOPS, TAIL_TERM_FLOPS = 340, 200, 60, 4
 
 
 def trip_work(rec, I_after):
@@ -362,6 +385,55 @@ def trip_work(rec, I_after):
                 mesh_hits=mesh_hits, head_bytes=head_bytes, tail_bytes=tail_bytes,
                 head_flops=live * n_sph * HEAD_SPHERE_FLOPS,
                 tail_flops=live * TAIL_LIVE_FLOPS + ended * TAIL_FOLD_FLOPS)
+
+
+def nee_trip_work(rec, I_after):
+    """The bytes and float operations trip_nee and the NEE mode of
+    trip_tail need on one recorded trip of a scene with emitters, by what
+    each lane does (each input read once, each output written once, as
+    trip_kernels.cu reads and writes them; the scene table once)."""
+    plan, I0 = rec["plan"], rec["I"]
+    keys = trip_kernel.I_KEYS
+    n, n_pad, terms, mesh = plan.n, plan.n_pad, len(plan.nee_kinds), plan.mesh
+    alive = I0[keys.index("alive")] != 0
+    done = (I0[keys.index("done")] != 0) if plan.chained else torch.zeros_like(alive)
+    live = int(alive.sum())
+    touched = int((alive | ~done).sum()) if plan.chained else live
+    on_mesh = (rec["sweep"][1].reshape(-1)[:n] >= 0) & alive if mesh else torch.zeros_like(alive)
+    hit = (rec["hint"] >= 0) & alive | on_mesh
+    first = hit & (I0[keys.index("bounce")] == 0)
+    emissive = hit & ~rec["nee"]["alive_next"]
+    mask = rec["nee"]["nee_mask"]
+    lit = mask & ~rec["occ"] if rec["occ"] is not None else mask
+    ended_lanes = I_after[keys.index("k")] != I0[keys.index("k")]
+    ended = int(ended_lanes.sum())
+    fresh = int((ended_lanes & (I_after[keys.index("done")] == 0)).sum())
+    opens = int(mask.sum())
+    # trip_nee: alive of every lane; a live lane's seed, bounce, ray,
+    # throughput and radiance, its record (and slot), its radiance and
+    # alive_next out; a hit's t_min in and scatter out (ray, t_min,
+    # throughput, pdf_w, spec), the first hit's normal and depth, an
+    # emitter's pdf_w and spec in; each term's mask (and -BIG seed) of every
+    # padded lane, an open lane's contribution (and its other 7 rows), the
+    # pad lanes' rows
+    nee_bytes = (n * 4 + live * (8 + 48 + 32 + 12 + 1 + (4 if mesh else 0))
+                 + int(on_mesh.sum()) * 20 + int(hit.sum()) * 52 + int(first.sum()) * 16
+                 + int(emissive.sum()) * 8 + terms * n_pad * (1 + (4 if mesh else 0))
+                 + opens * (12 + (28 if mesh else 0))
+                 + (terms * (n_pad - n) * 28 if mesh else 0) + plan.tables.table.numel() * 4)
+    # the NEE tail: as trip_tail's, the record and the sweep's winner out
+    # and a live lane's alive_next, each term's mask (and occlusion) and a
+    # lit term's contribution in; a restart also writes spec and pdf_w
+    tail_bytes = (n * (12 + (4 if plan.chained else 0)) + touched * (17 * 8 + 12)
+                  + live * (4 + 1 + terms * (1 + (1 if mesh else 0))) + int(lit.sum()) * 12
+                  + ended * 68 + fresh * 12 + 4)
+    n_sph = plan.tables.n_sph
+    return dict(lanes=n, live=live, hits=int(hit.sum()), mesh_hits=int(on_mesh.sum()),
+                terms=terms, open_term_lanes=opens, lit_term_lanes=int(lit.sum()), ended=ended,
+                restarts=fresh, nee_bytes=nee_bytes, tail_bytes=tail_bytes,
+                nee_flops=live * (NEE_LIVE_FLOPS + terms * (NEE_TERM_FLOPS
+                                                            + n_sph * NEE_SPHERE_FLOPS)),
+                tail_flops=live * (terms * TAIL_TERM_FLOPS + 20) + ended * TAIL_FOLD_FLOPS)
 
 
 def require_equal_state(name, got, want):
@@ -402,42 +474,88 @@ def compare_trip(label, rec, reps=20):
     for b in (bk, bp):
         b.hrec.copy_(rec["hrec"])
         b.hint.copy_(rec["hint"])
-    Fk, Ik, Fp, Ip = F.clone(), I.clone(), F.clone(), I.clone()
-    trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"])
-    trip_kernel.trip_tail_plain(plan, Fp, Ip, bp, rec["sweep"])
+    head_ms = cuda_ms(lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
+    head_dev_ms = kernel_ms(lambda: None, lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
+    head_plain_ms = cuda_ms(lambda: trip_kernel.trip_head_plain(plan, F, I, bp), 2)
+    for b in (bk, bp):  # what the render's head wrote, as the kernels after it read it
+        b.hrec.copy_(rec["hrec"])
+        b.hint.copy_(rec["hint"])
+    timings = {}
+    if plan.nee:
+        # trip_nee on the render's head and sweep, from the buffers its own
+        # trip_nee found; the NEE tail on what the render's trip_nee wrote
+        # and the any-hit sweep's occlusion
+        def load(keys_from):
+            for b in (bk, bp):
+                for k, v in keys_from.items():
+                    if v is not None:
+                        getattr(b, k).copy_(v)
+
+        load(rec["nee_pre"])
+        Fk, Ik, Fp, Ip = F.clone(), I.clone(), F.clone(), I.clone()
+        trip_kernel.trip_nee(plan, Fk, Ik, bk, rec["sweep"])
+        trip_kernel.trip_nee_plain(plan, Fp, Ip, bp, rec["sweep"])
+        torch.cuda.synchronize()
+        require_equal_state(f"trip_nee {label}", (Fk, Ik), (Fp, Ip))
+        nee_k = [getattr(bk, k) for k in NEE_OUT if getattr(bk, k) is not None]
+        require_equal(f"trip_nee {label}", nee_k,
+                      [getattr(bp, k) for k in NEE_OUT if getattr(bp, k) is not None])
+        require_equal_state(f"trip_nee {label} vs the render's call", (Fk, Ik),
+                            (rec["F2"], rec["I2"]))
+        require_equal(f"trip_nee {label} vs the render's call", nee_k,
+                      [v for v in rec["nee"].values() if v is not None])
+
+        def restore_nee():
+            Fk.copy_(F)
+            Ik.copy_(I)
+
+        timings["trip_nee"] = (
+            events_ms(restore_nee, lambda: trip_kernel.trip_nee(plan, Fk, Ik, bk, rec["sweep"]),
+                      reps),
+            kernel_ms(restore_nee, lambda: trip_kernel.trip_nee(plan, Fk, Ik, bk, rec["sweep"]),
+                      reps),
+            events_ms(restore_nee, lambda: trip_kernel.trip_nee_plain(plan, Fk, Ik, bp,
+                                                                      rec["sweep"]), 2))
+        load(rec["nee"])
+        F_in, I_in, tail_args = rec["F2"], rec["I2"], dict(occ=rec["occ"])
+    else:
+        F_in, I_in, tail_args = F, I, dict(sweep=rec["sweep"])
+    Fk, Ik, Fp, Ip = F_in.clone(), I_in.clone(), F_in.clone(), I_in.clone()
+    trip_kernel.trip_tail(plan, Fk, Ik, bk, **tail_args)
+    trip_kernel.trip_tail_plain(plan, Fp, Ip, bp, **tail_args)
     torch.cuda.synchronize()
-    require_equal_state(f"trip_tail {label}", (Fk, Ik), (Fp, Ip))
-    require_equal(f"trip_tail {label} count", [bk.count], [bp.count])
+    mode = " (NEE mode)" if plan.nee else ""
+    require_equal_state(f"trip_tail{mode} {label}", (Fk, Ik), (Fp, Ip))
+    require_equal(f"trip_tail{mode} {label} count", [bk.count], [bp.count])
     work = trip_work(rec, Ik)
+    if plan.nee:
+        nee_work = nee_trip_work(rec, Ik)
+        work.update(nee_work, tail_flops=nee_work["tail_flops"])
 
     def restore():
-        Fk.copy_(F)
-        Ik.copy_(I)
+        Fk.copy_(F_in)
+        Ik.copy_(I_in)
 
-    head_ms = cuda_ms(lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
-    tail_ms = events_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"]),
-                        reps)
-    head_dev_ms = kernel_ms(lambda: None, lambda: trip_kernel.trip_head(plan, F, I, bk), reps)
-    tail_dev_ms = kernel_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, rec["sweep"]),
-                            reps)
-    head_plain_ms = cuda_ms(lambda: trip_kernel.trip_head_plain(plan, F, I, bp), 2)
-    tail_plain_ms = events_ms(restore, lambda: trip_kernel.trip_tail_plain(plan, Fk, Ik, bp,
-                                                                           rec["sweep"]), 2)
+    timings["trip_tail"] = (
+        events_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, **tail_args), reps),
+        kernel_ms(restore, lambda: trip_kernel.trip_tail(plan, Fk, Ik, bk, **tail_args), reps),
+        events_ms(restore, lambda: trip_kernel.trip_tail_plain(plan, Fk, Ik, bp, **tail_args), 2))
     out = {}
-    for name, ms, dev_ms, plain_ms, nbytes, flops in (
-            ("trip_head", head_ms, head_dev_ms, head_plain_ms, work["head_bytes"],
-             work["head_flops"]),
-            ("trip_tail", tail_ms, tail_dev_ms, tail_plain_ms, work["tail_bytes"],
-             work["tail_flops"])):
+    for name, (ms, dev_ms, plain_ms) in dict(trip_head=(head_ms, head_dev_ms, head_plain_ms),
+                                             **timings).items():
+        nbytes, flops = work[f"{name[5:]}_bytes"], work[f"{name[5:]}_flops"]
         bound_ms, bound_by = bound(flops, nbytes)
         out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, share_of_bound=bound_ms / dev_ms,
                          max_abs_err=0.0, bytes=nbytes, flops=flops)
+    nee_note = (f", {work['open_term_lanes']} lanes of {work['terms']} NEE term(s) past the "
+                f"sphere test, {work['lit_term_lanes']} lit" if plan.nee else "")
     print(f"{label}: {work['lanes']} lanes, {work['live']} live, {work['ended']} samples ended, "
-          f"{work['restarts']} restarts, {work['mesh_hits']} mesh hits; trip_head and trip_tail "
-          f"equal to their twins (every output)")
+          f"{work['restarts']} restarts, {work['mesh_hits']} mesh hits{nee_note}; "
+          f"{', '.join(out)} equal to their twins (every output)")
     for name, r in out.items():
-        print(f"  {name} {r['ms']:.4f} ms a call (events), {r['device_ms']:.4f} ms on the device, "
+        print(f"  {name}{' (NEE mode)' if name == 'trip_tail' and plan.nee else ''} "
+              f"{r['ms']:.4f} ms a call (events), {r['device_ms']:.4f} ms on the device, "
               f"twin {r['plain_ms']:.3f} ms; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.4f} GFLOP; "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['share_of_bound']:.1%} of it")
     return dict(out, work=work)
@@ -719,6 +837,7 @@ assert (launches["treelet_closest_hit"], rays) == (FWD_LAUNCHES, FWD_SEGMENTS), 
 # the main path is the trip route: one trip_head and one trip_tail a trip
 assert integrator.render_route(scene) == "trip"
 assert launches["trip_head"] == launches["trip_tail"] == FWD_LAUNCHES, launches
+assert launches["trip_nee"] == 0, launches  # bunny.json has no emitter
 assert rays > n, rays
 assert tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all()), "non-finite image"
 assert bool(torch.isfinite(buf.normal).all() and torch.isfinite(buf.depth).all())
@@ -796,6 +915,7 @@ for route in ("trip", "body", "body", "trip"):
     c_r = read_counts()
     assert (int(r_r), c_r["treelet_closest_hit"]) == (FWD_SEGMENTS, FWD_LAUNCHES), (route, c_r)
     assert c_r["trip_tail"] == c_r["trip_head"] == (FWD_LAUNCHES if route == "trip" else 0), c_r
+    assert c_r["trip_nee"] == 0, c_r
     for key in ("color", "normal", "depth"):
         assert torch.equal(getattr(b_r, key), getattr(buf, key)), f"{route} route: {key} differs"
     route_walls[route].append(w_r)
@@ -1141,28 +1261,38 @@ closest_area = compare_sweep("cornell_area.json bounce-0 rays", area, *captured_
 pay_area = compare_payload("cornell_area.json bounce-0 rays", area_r, *captured_ch[0][:2])
 
 # --- 10 ------------------------------------------------------------------
-phase(f"10 NEE renders: cornell.json and cornell_area.json, {NEE_SIZE}^2, {NEE_BOUNCES} bounces, "
-      f"rr {NEE_RR}; spp {NEE_SPP}")
+phase(f"10 NEE renders on the trip route: cornell.json and cornell_area.json, {NEE_SIZE}^2, "
+      f"{NEE_BOUNCES} bounces, rr {NEE_RR}; spp {NEE_SPP}; the body route in turns; trip_head, "
+      f"trip_nee and trip_tail's NEE mode vs their twins on trips 0, 2 and the last of each and "
+      f"of sixteen lamps at {NEE_SIZE}^2")
 
 
-def nee_render(name, size=NEE_SIZE, intersect_fn=None, any_hit=None):
-    """(buffers, segments, trips): trips count the calls of the hit pass."""
-    fn = intersect_fn or intersect.intersect_scene_ids
+def nee_render(name, size=NEE_SIZE, route="trip", intersect_fn=None, any_hit=None):
+    """(buffers, segments, trips) of the NEE render by ``route``: "trip"
+    (the route the call picks; trips count trip_head's launches) or "body"
+    (``_bounce_body`` on the hit pass ``intersect_fn``, by default the
+    default one wrapped; trips count its calls)."""
+    fn = None
+    if route == "body":
+        inner = intersect_fn or intersect.intersect_scene_ids
 
-    def trips(*args):
-        trips.calls += 1
-        return fn(*args)
+        def fn(*args):
+            fn.calls += 1
+            return inner(*args)
 
-    trips.calls = 0
+        fn.calls = 0
+    assert integrator.render_route(nee_scene[name], False, fn, any_hit) == route, (name, route)
+    heads = trip_kernel.LAUNCHES["trip_head"]
     buf, rays = tpupt_torch.render_image(
         nee_scene[name], nee_desc[name].camera, size, size, spp=NEE_SPP[name],
-        max_bounces=NEE_BOUNCES, rr_start=NEE_RR, intersect_fn=trips, any_hit=any_hit, device=DEV)
-    return buf, int(rays), trips.calls
+        max_bounces=NEE_BOUNCES, rr_start=NEE_RR, intersect_fn=fn, any_hit=any_hit, device=DEV)
+    return buf, int(rays), fn.calls if route == "body" else trip_kernel.LAUNCHES["trip_head"] - heads
 
 
 def drive_nee(name, calls):
-    """The main path on one scene: counts reset before and read after each
-    call, equal between calls; first-call time, walls of the next calls."""
+    """The main path on one scene, the trip route: counts reset before and
+    read after each call, equal between calls; first-call time, walls of
+    the next calls."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1175,6 +1305,12 @@ def drive_nee(name, calls):
     assert bool(torch.isfinite(buf.normal).all() and torch.isfinite(buf.depth).all()), name
     mean = img.mean(dim=0).tolist()
     assert 0.02 < min(mean) and max(mean) < 10.0, f"{name}: implausible mean colour {mean}"
+    # one trip_head, trip_nee and trip_tail a trip; with a mesh one
+    # closest-hit and one any-hit call a trip, without none
+    mesh = any(k == intersect.OBJ_MESH for k in nee_scene[name].s_obj_kind)
+    assert counts["trip_head"] == counts["trip_nee"] == counts["trip_tail"] == trips > 0, counts
+    assert counts["treelet_closest_hit"] == counts["treelet_any_hit"] == (trips if mesh else 0), \
+        counts
     walls = []
     for _ in range(calls):
         reset_counts()
@@ -1185,55 +1321,118 @@ def drive_nee(name, calls):
         walls.append(time.perf_counter() - t0)
         assert (rays2, trips2, read_counts()) == (rays, trips, counts), \
             f"{name}: segments, trips or launches moved between calls"
+        assert torch.equal(_buf2.color, img), f"{name}: render is not deterministic"
     wall = float(np.median(walls))
-    assert counts["trip_tail"] == 0 and integrator.render_route(nee_scene[name]) == "body"
-    print(f"{name}: first call {first:.3f} s; the body route (emitters: NEE); {trips} trips, "
-          f"{rays} traced segments, launches {counts}; mean colour "
-          f"{[round(x, 4) for x in mean]}")
+    print(f"{name}: first call {first:.3f} s; the trip route; {trips} trips, {rays} traced "
+          f"segments, launches {counts}; mean colour {[round(x, 4) for x in mean]}")
     print(f"  calls 2-{calls + 1}: {', '.join(f'{w:.3f}' for w in walls)} s wall; median {wall:.3f} s = "
           f"{rays / wall / 1e6:.3f} traced Mrays/s  [{smi}]")
     np.save(os.path.join(OUT, f"{name[:-5]}_{NEE_SIZE}_{NEE_SPP[name]}spp.npy"),
             img.reshape(NEE_SIZE, NEE_SIZE, 3).cpu().numpy().astype(np.float16))
-    return dict(rays=rays, trips=trips, launches=counts, first_call_s=first, walls_s=walls,
-                wall_s=wall, mrays_per_s=rays / wall / 1e6, mean_colour=mean)
+    return buf, dict(rays=rays, trips=trips, launches=counts, first_call_s=first, walls_s=walls,
+                     wall_s=wall, mrays_per_s=rays / wall / 1e6, mean_colour=mean)
 
 
 # two timed calls after the first: the run's wall is bounded
-nee_fwd = {name: drive_nee(name, 2) for name in NEE_SPP}
-assert sum(nee_fwd["cornell.json"]["launches"].values()) == 0  # no mesh: no sweep at all
+nee_fwd, nee_bufs = {}, {}
+for name in NEE_SPP:
+    nee_bufs[name], nee_fwd[name] = drive_nee(name, 2)
 area_launches = nee_fwd["cornell_area.json"]["launches"]
-assert area_launches["treelet_any_hit"] > 0 and area_launches["treelet_closest_hit"] > 0, \
-    area_launches
-# device time of one more cornell_area render, by kernel
-with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-    nee_render("cornell_area.json")
-    torch.cuda.synchronize()
-kav = prof.key_averages()
-kern = [e for e in kav if e.self_device_time_total > 0]
-with open(os.path.join(OUT, "cornell_area_render_profile.txt"), "w") as fh:
-    fh.write(kav.table(sort_by="self_device_time_total", row_limit=40))
-area_busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-area_any_ms = sum(e.self_device_time_total for e in kern if "treelet_any_hit" in e.key) / 1e3
-print(f"profiled cornell_area render: device busy {area_busy_ms:.1f} ms = "
-      f"{area_busy_ms / 1e3 / nee_fwd['cornell_area.json']['wall_s']:.1%} of the median wall; "
-      f"the any-hit kernels {area_any_ms:.2f} ms; {sum(e.count for e in kern)} kernels"
-      if area_busy_ms > 0 else "profiled render: the profiler recorded no device time (not measured)")
-nee_fwd["cornell_area.json"].update(profiled_device_busy_ms=area_busy_ms,
-                                    profiled_any_hit_ms=area_any_ms)
+
+# each render by each route, in turns (trip, body, body, trip): bit-equal,
+# the same segments and trips; then each route once under torch.profiler
+NEE_KERNELS = ("trip_head_kernel", "trip_nee_kernel", "trip_tail_kernel",
+               "treelet_closest_hit_kernel", "treelet_any_hit")
+for name in NEE_SPP:
+    want, info = nee_bufs[name], nee_fwd[name]
+    walls_r = {"trip": [], "body": []}
+    for route in ("trip", "body", "body", "trip"):
+        reset_counts()
+        (b_r, r_r, t_r), w_r = timed(lambda: nee_render(name, route=route))
+        c_r = read_counts()
+        assert (r_r, t_r) == (info["rays"], info["trips"]), (name, route, r_r, t_r)
+        assert c_r["trip_nee"] == (info["trips"] if route == "trip" else 0), (name, route, c_r)
+        for key in ("color", "normal", "depth"):
+            assert torch.equal(getattr(b_r, key), getattr(want, key)), f"{name} {route}: {key}"
+        walls_r[route].append(w_r)
+        del b_r
+    info["routes_in_turns"] = {}
+    for route in ("trip", "body"):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            nee_render(name, route=route)
+            torch.cuda.synchronize()
+        kav = prof.key_averages()
+        if route == "trip":
+            with open(os.path.join(OUT, f"{name[:-5]}_render_profile.txt"), "w") as fh:
+                fh.write(kav.table(sort_by="self_device_time_total", row_limit=40))
+        kern = [e for e in kav if e.self_device_time_total > 0]
+        r_busy = sum(e.self_device_time_total for e in kern) / 1e3
+        n_kern = sum(e.count for e in kern)
+        wall_r = sum(walls_r[route]) / len(walls_r[route])
+        by_kernel = {k: sum(e.self_device_time_total for e in kern if k in e.key) / 1e3
+                     for k in NEE_KERNELS}
+        info["routes_in_turns"][route] = dict(
+            walls_s=walls_r[route], profiled_device_busy_ms=r_busy, busy_share=r_busy / 1e3 / wall_r,
+            kernels=n_kern, kernels_per_trip=n_kern / info["trips"], device_ms=by_kernel)
+        print(f"{name}, {route} route: walls {', '.join(f'{w:.3f}' for w in walls_r[route])} s "
+              f"({info['rays'] / wall_r / 1e6:.3f} Mrays/s); "
+              + (f"profiled: device busy {r_busy:.2f} ms = {r_busy / 1e3 / wall_r:.1%} of the mean "
+                 f"wall, {n_kern} kernels = {n_kern / info['trips']:.1f} a trip; device ms "
+                 + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel.items() if v > 0)
+                 if r_busy > 0 else "the profiler recorded no device time (not measured)")
+              + f"  [{smi}]")
+    print(f"{name}: the two routes' renders are bit-equal, {info['rays']} segments in "
+          f"{info['trips']} trips each; body/trip mean wall "
+          f"{sum(walls_r['body']) / sum(walls_r['trip']):.2f}")
+del nee_bufs
+
+# the trip kernels against their twins on recorded trips of each render
+# and of sixteen lamps (one light sampled per lane, its sphere test
+# excluding that light per lane), each output exact; their times, work,
+# bounds and shares
+def translate(x, y, z):
+    m = np.eye(4)
+    m[:3, 3] = (x, y, z)
+    return m
+
+
+# tests/test_emissive.py's sixteen lamps over a floor, at BASELINE config 2's
+# size, depth and roulette
+m16 = tpupt_torch.SceneDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
+m16.add_material("floor", "lambertian", albedo=(0.7, 0.7, 0.7))
+m16.add_sphere(100.0, translate(0, -100.5, -1), "floor")
+for i in range(16):
+    m16.add_material(f"lamp{i}", "diffuse_light", emit=(2.0 + 0.2 * i, 2.0, 1.0))
+    m16.add_sphere(0.15, translate(-1.5 + 3.0 * i / 15, 0.8, -1.5), f"lamp{i}")
+m16.camera = make_camera(vfov=np.pi / 2)
+nee_scene["many16"], nee_desc["many16"], NEE_SPP["many16"] = m16.build(device=DEV), m16, 2
+assert len(nee_scene["many16"].s_light_objs) == 16 > integrator.NEE_UNROLL_MAX
+for name in NEE_SPP:
+    _, rays_n, trips_n = nee_render(name)
+    (_, rays_r, trips_r), n_rec, kept_n = record_trip_inputs(lambda: nee_render(name),
+                                                             {0, 2, trips_n - 1})
+    assert (rays_r, trips_r, n_rec) == (rays_n, trips_n, trips_n), (name, rays_r, trips_r, n_rec)
+    if name in nee_fwd:
+        assert (rays_n, trips_n) == (nee_fwd[name]["rays"], nee_fwd[name]["trips"]), name
+    for t in sorted({0, 2, trips_n - 1}):
+        last = " (the last)" if t == trips_n - 1 else ""
+        trip_checks[f"{name.removesuffix('.json')}_trip{t}"] = compare_trip(
+            f"{name} {NEE_SIZE}^2, {NEE_SPP[name]} spp, trip {t}{last}", kept_n.pop(t))
+    del kept_n
 
 twin_fwd = functools.partial(intersect.intersect_scene_ids,
                              closest_hit=sweep_kernel.treelet_closest_hit_plain)
-for name in NEE_SPP:
+for name in ("cornell.json", "cornell_area.json"):
     bk, rk, _ = nee_render(name, 128)
-    bp, rp, _ = nee_render(name, 128, twin_fwd, sweep_kernel.treelet_any_hit_plain)
+    bp, rp, _ = nee_render(name, 128, "body", twin_fwd, sweep_kernel.treelet_any_hit_plain)
     assert rk == rp, (name, rk, rp)
     gaps = []
     for key in ("color", "normal", "depth"):
         a, b = getattr(bk, key), getattr(bp, key)
         assert torch.allclose(a, b, rtol=1e-4, atol=1e-5), (name, key)
         gaps.append(f"{key} {float((a - b).abs().max()):.3g}")
-    print(f"{name} at 128^2, kernels vs twins: {rk} segments each; max |difference| "
-          + ", ".join(gaps))
+    print(f"{name} at 128^2, the trip kernels vs the body route on the sweeps' twins: {rk} "
+          f"segments each; max |difference| " + ", ".join(gaps))
 
 # --- 11 ------------------------------------------------------------------
 phase(f"11 fwd+bwd on cornell_area.json: {NEE_SIZE}^2, {NEE_DIFF_SPP} spp, {NEE_BOUNCES} bounces, "
@@ -1509,7 +1708,10 @@ cli_compacted, cli_uncompacted = compare_bounce2(f"CLI {CLI_W}x{CLI_H} no RR", C
 # at 4 of the scene's 16 spp: the run's wall is bounded
 st_a, la_a, png_a, wall_a = run_cli("cornell_area", "cornell_area.json", "--spp", "4")
 assert (st_a["resolution"], st_a["spp"]) == ([NEE_SIZE, NEE_SIZE], 4), st_a
-assert la_a["treelet_closest_hit"] > 0 and la_a["treelet_any_hit"] > 0, la_a
+# the trip route: one trip_head, closest-hit call, trip_nee, any-hit call
+# and trip_tail a trip
+assert (la_a["trip_head"] == la_a["treelet_closest_hit"] == la_a["trip_nee"]
+        == la_a["treelet_any_hit"] == la_a["trip_tail"] > 0), la_a
 assert st_a["rays"] > NEE_SIZE * NEE_SIZE and png_a.any(), st_a
 cli["cornell_area.json"] = dict(stats=st_a, launches=la_a, wall_s=wall_a)
 print(f"  [{smi}]")
@@ -2101,10 +2303,11 @@ for name in harness.CONFIGS:
     meshes = name in ("bunny", "multimesh", "ajax", "ajax_hi")
     assert (info["launches_per_call"]["treelet_closest_hit"] > 0) == meshes, (name, info)
     assert info["launches_per_call"]["treelet_any_hit"] == 0, (name, info)  # no mesh light
-    # the trip route on every forward config without emitters; cornell
-    # (sphere NEE) and diff (differentiable) take the body route
-    trip_route = name not in ("cornell", "diff")
+    # the trip route on every forward config, cornell's (sphere NEE: the
+    # trip_nee kernel) too; diff (differentiable) takes the body route
+    trip_route = name != "diff"
     assert (info["launches_per_call"]["trip_tail"] > 0) == trip_route, (name, info)
+    assert (info["launches_per_call"]["trip_nee"] > 0) == (name == "cornell"), (name, info)
     print(f"  {name}: the {'trip' if trip_route else 'body'} route", flush=True)
     if name not in ("multimesh", "ajax", "ajax_hi"):
         del scn
@@ -2298,7 +2501,28 @@ report = {
                                    for k, v in harness_info.items()},
         inputs={k: dict(v[name], work=v["work"]) for k, v in trip_checks.items()},
     ) for name, replaces in (("trip_head", "tpupt/render/intersect.py:98"),
-                             ("trip_tail", "tpupt/render/integrator.py:499"))],
+                             ("trip_tail", "tpupt/render/integrator.py:499"))] + [dict(
+        # not Pallas in the JAX package: XLA fuses _bounce_body with NEE
+        # (tpupt/render/integrator.py:499, its NEE part :570-600) into the
+        # trip body; its main path is the Cornell renders of phase 10 (the
+        # launches of the cornell_area render), the top-level times are
+        # cornell_area's trip 2, 512^2 lanes; trip_tail's NEE mode is in
+        # trip_tail's inputs above
+        name="trip_nee", route="cuda", source="tpupt_torch/accel/csrc/trip_kernels.cu",
+        replaces="tpupt/render/integrator.py:570", launches=area_launches["trip_nee"],
+        cornell_launches=nee_fwd["cornell.json"]["launches"]["trip_nee"],
+        max_abs_err=max(c["trip_nee"]["max_abs_err"] for c in trip_checks.values()
+                        if "trip_nee" in c),
+        **{k: trip_checks["cornell_area_trip2"]["trip_nee"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None,
+        cli_launches={k: v["launches"]["trip_nee"] for k, v in cli.items()},
+        fit_step_launches=fit_per_step["trip_nee"], band_launches=band_launches("trip_nee"),
+        harness_launches_per_call={k: v["launches_per_call"]["trip_nee"]
+                                   for k, v in harness_info.items()},
+        inputs={k: dict(v["trip_nee"], work=v["work"]) for k, v in trip_checks.items()
+                if "trip_nee" in v},
+    )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
     "off_path": [dict(

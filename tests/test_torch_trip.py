@@ -22,8 +22,9 @@ body route's own functions, so:
 * ``trip_head`` leaves a dead lane's record and ray rows as they were and
   writes its -BIG seed and mask;
 * ``render_route`` and the renders themselves take the trip route exactly
-  for forward renders of scenes without emitters through the default hit
-  pass.
+  for forward renders through the default hit pass and, on a scene with
+  emitters, the default shadow sweep (the NEE trip itself is held in
+  ``test_torch_trip_nee.py``).
 
 The tests marked ``cuda`` run the kernels against their twins on the
 card (exact: both round every float32 operation once, in the same
@@ -69,7 +70,8 @@ def _spheres_scene(device="cpu"):
     """Spheres under non-uniform scale and rotation of all four materials
     beside an icosphere and on a radius-100 ground.  The glowing sphere's
     light tables are emptied, so the scene has no emitter to sample (the
-    trip route) and bounces reach the emission lobe of ``shade``."""
+    trip route without NEE) and bounces reach the emission lobe of
+    ``shade``."""
     v, f = icosphere(2)
     d = SceneDescription(bg_down=(1.0, 0.9, 0.8), bg_up=(0.4, 0.6, 1.0))
     d.add_material("clay", "lambertian", albedo=(0.7, 0.45, 0.3))
@@ -163,6 +165,7 @@ def test_sphere_only_scene_takes_no_sweep():
 
 def test_trip_route_matches_jax_multimesh(multimesh_trip_render):
     jh = pytest.importorskip("tpupt.bench.harness")
+    pytest.importorskip("tpupt.render.integrator")  # the JAX package and what it imports
     from tpupt.render.integrator import render_image as jax_render_image
 
     jscene, jcam = jh.CONFIGS["multimesh"]["scene"]()
@@ -263,15 +266,18 @@ def _nee_scene():
 
 
 TWIN = functools.partial(intersect_scene_ids, closest_hit=sweep_kernel.treelet_closest_hit_plain)
-ROUTES = {  # (scene, differentiable, intersect_fn) -> route
-    "forward": ("spheres", False, None, "trip"),
-    "forward, intersect_scene_ids named": ("spheres", False, intersect_scene_ids, "trip"),
-    "nee": ("nee", False, None, "body"),
-    "differentiable": ("spheres", True, None, "body"),
-    "bvh oracle": ("spheres", False, intersect_scene_ids_bvh, "body"),
-    "brute force": ("spheres", False, intersect_scene_ids_brute, "body"),
-    "sweep twin passed in": ("spheres", False, TWIN, "body"),
-    "default hit pass wrapped": ("spheres", False, BODY, "body"),
+ROUTES = {  # (scene, differentiable, intersect_fn, any_hit) -> route
+    "forward": ("spheres", False, None, None, "trip"),
+    "forward, intersect_scene_ids named": ("spheres", False, intersect_scene_ids, None, "trip"),
+    "nee": ("nee", False, None, None, "trip"),
+    "nee, treelet_any_hit named": ("nee", False, None, sweep_kernel.treelet_any_hit, "trip"),
+    "nee, any_hit passed": ("nee", False, None, sweep_kernel.treelet_any_hit_plain, "body"),
+    "nee, differentiable": ("nee", True, None, None, "body"),
+    "differentiable": ("spheres", True, None, None, "body"),
+    "bvh oracle": ("spheres", False, intersect_scene_ids_bvh, None, "body"),
+    "brute force": ("spheres", False, intersect_scene_ids_brute, None, "body"),
+    "sweep twin passed in": ("spheres", False, TWIN, None, "body"),
+    "default hit pass wrapped": ("spheres", False, BODY, None, "body"),
 }
 
 
@@ -291,10 +297,10 @@ def head_calls(monkeypatch):
 
 @pytest.mark.parametrize("case", ROUTES)
 def test_render_route(spheres, head_calls, case):
-    name, diff, fn, want = ROUTES[case]
+    name, diff, fn, any_hit, want = ROUTES[case]
     scene, cam = spheres if name == "spheres" else (_nee_scene(), make_camera())
-    assert render_route(scene, diff, fn) == want
-    kw = dict(max_bounces=2, intersect_fn=fn, differentiable=diff)
+    assert render_route(scene, diff, fn, any_hit) == want
+    kw = dict(max_bounces=2, intersect_fn=fn, differentiable=diff, any_hit=any_hit)
     buf, rays = render_image(scene, cam, 8, 8, spp=1, **kw)
     assert (len(head_calls) > 0) == (want == "trip") and int(rays) > 0
     del head_calls[:]

@@ -114,8 +114,11 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_winner_step.argtypes = [_P] * 11 + [_I, _I, _I] + [_P] * 7
     lib.tpupt_trip_head.restype = _I
     lib.tpupt_trip_head.argtypes = [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P]
+    lib.tpupt_trip_nee.restype = _I
+    lib.tpupt_trip_nee.argtypes = [_P, _P, _I, _I] + [_P] * 9 + [_I] * 7 + [_P] * 5
     lib.tpupt_trip_tail.restype = _I
-    lib.tpupt_trip_tail.argtypes = [_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P] + [_I] * 8 + [_P, _P]
+    lib.tpupt_trip_tail.argtypes = ([_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P] + [_I] * 11
+                                    + [_P] * 6)
     lib.tpupt_rcp_check.restype = _I
     lib.tpupt_rcp_check.argtypes = [_P, _P]
     lib.tpupt_cuda_error_string.restype = ctypes.c_char_p

@@ -11,14 +11,15 @@ path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
 is that of the per-sample loop, with the same ray count.  The port runs
 this as one flat loop with a host check for live lanes on every trip.
 
-Two routes run the loops (``render_route``).  A forward render of a scene
-without emitters through the default hit pass takes the trip route: per
-trip the CUDA kernels ``trip_kernel.trip_head`` and ``trip_tail`` around
-the closest-hit sweep, over the lane state in SoA device buffers, and one
+Two routes run the loops (``render_route``).  A forward render through
+the default hit pass (and, with emitters, the default shadow sweep) takes
+the trip route: per trip the CUDA kernels ``trip_kernel.trip_head``, with
+emitters ``trip_nee`` and the any-hit sweep, and ``trip_tail`` around the
+closest-hit sweep, over the lane state in SoA device buffers, and one
 4-byte read of the lanes left (``_run_trips``).  Everything else takes the
 body route, ``_bounce_body`` in torch, which the trip route equals bit for
 bit (any other ``intersect_fn``, even ``functools.partial(
-intersect_scene_ids)``, takes it).
+intersect_scene_ids)``, or ``any_hit`` takes it).
 
 Per sample (``chain_samples=False``, and every differentiable render): a
 loop over samples, each one ``trace_sample`` folded in by ``accumulate``.
@@ -35,7 +36,11 @@ importance sampling (MIS): every diffuse hit also samples each sphere
 light (up to ``NEE_UNROLL_MAX``; above, one light per lane) and the
 emissive-mesh triangles, and sends a shadow ray through
 ``intersect.occlusion_anyhit``; an emissive surface that a diffuse bounce
-hits gets the balance heuristic's weight.
+hits gets the balance heuristic's weight.  NEE is a sample step
+(``_nee_samples``), each term's shadow test (``_shadow_lit``) and a
+resolve step (``_nee_resolve``); the trip route puts the sample step and
+the shadow rays' sphere test in ``trip_nee``, their mesh test in one
+any-hit call, and the resolve step in ``trip_tail``.
 
 Row bands (``row0``, ``rows``) render rows [row0, row0 + rows) of the
 image: the RNG and the camera stay keyed on the global pixel, so a band
@@ -51,6 +56,8 @@ which traces them by its own closest hit (``_closest_hit_shadows``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -209,67 +216,74 @@ def _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_al
     return vec.where(hit_alive & absorb, radiance + state["color"] * emitted * w, radiance)
 
 
-@torch.no_grad()
-def _shadow_lit(scene, p, direction, center, radius, shadow_active, lo, any_hit, shadow_fn):
-    """Shadow test toward a point sampled on a sphere light (object ``lo``:
-    an int, or per lane): any-hit occlusion of the window [1e-4, distance
-    to the light along the unit direction], the light itself excluded.
-    With ``shadow_fn`` (a reference intersector, see
-    ``_closest_hit_shadows``), whether its closest hit from 1e-4 on is the
-    light; the two agree except at exact-t ties."""
-    if shadow_fn is not None:
-        ids, _ = shadow_fn(scene, p, direction, torch.full_like(p.x, 1e-4), shadow_active)
-        return shadow_active & (ids.obj_id == lo)
+class NeeTerm(NamedTuple):
+    """One term of NEE's sum, as the sample step leaves it: per lane a
+    point on the light (a sphere light's cone sample, or a point on the
+    emissive-mesh triangles), its shadow ray from ``p`` along the unit
+    ``direction`` over [1e-4, ``t_limit``], the lanes whose sample is
+    valid (``active``), the light's object id that the ray's sphere test
+    skips (``light``: an int, or per lane; -1 for the mesh term) and the
+    contribution the term adds where the ray is unoccluded.  ``kind`` says
+    how the resolve step adds it: "mesh" (the sum's first term), "light"
+    (one of the unrolled sphere lights) or "sampled" (one sphere light per
+    lane)."""
+
+    kind: str
+    contrib: Vec3
+    p: Vec3
+    direction: Vec3
+    t_limit: torch.Tensor
+    active: torch.Tensor
+    light: object
+
+
+def _t_light(p, direction, center, radius):
+    """Distance along the unit ``direction`` from ``p`` to the near side of
+    the sphere light: the end of its shadow window."""
     oc = p - center
     b = direction.dot(oc)
     disc = torch.clamp(b * b - (oc.dot(oc) - radius * radius), min=0.0)
-    t_light = -b - torch.sqrt(disc)
-    occ = occlusion_anyhit(scene, p, direction, torch.full_like(b, 1e-4), t_light, shadow_active,
-                           lo, any_hit)
-    return shadow_active & ~occ
+    return -b - torch.sqrt(disc)
 
 
-def _nee_direct_light(scene, hit, throughput, seed, bounce, alive, any_hit, shadow_fn=None):
-    """Next-event estimation from every diffuse hit: the emissive-mesh
-    term (``_nee_mesh_light``) plus, for sphere lights, one MIS-weighted
-    sample of each (up to ``NEE_UNROLL_MAX``) or of one light per lane
-    (``_nee_sampled_light``).  The shadow rays take ``any_hit``, or the
-    closest hit of ``shadow_fn`` when it is given."""
+def _nee_samples(scene, hit, throughput, seed, bounce, alive) -> list:
+    """The sample step of next-event estimation from every diffuse hit: the
+    emissive-mesh term (``_nee_mesh_sample``) and, for sphere lights, one
+    MIS-weighted sample of each (up to ``NEE_UNROLL_MAX``) or of one light
+    per lane (``_nee_sampled_sample``), as ``NeeTerm``s in the order
+    ``_nee_resolve`` adds them."""
     mtype, albedo, *_ = _material_rows(scene, hit.mat_id)
     n = hit.normal
     diffuse = alive & hit.mask & (mtype == MAT_DIFFUSE)
     p = hit.point + n * 1e-4  # the scatter's offset
-    total = (
-        _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit,
-                        shadow_fn)
-        if scene.s_tri_light_count > 0
-        else _zero3(hit.t)
-    )
+    terms = []
+    if scene.s_tri_light_count > 0:
+        terms.append(_nee_mesh_sample(scene, p, n, diffuse, albedo, throughput, seed, bounce))
     if len(scene.s_light_objs) > NEE_UNROLL_MAX:
-        return total + _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce,
-                                          any_hit, shadow_fn)
+        terms.append(_nee_sampled_sample(scene, p, n, diffuse, albedo, throughput, seed, bounce))
+        return terms
     for li, lo in enumerate(scene.s_light_objs):
         center = Vec3(*scene.nee_center[li].unbind())
         radius = scene.nee_radius[li]
         u1 = uniform(seed, bounce_counter(bounce, 4 + 2 * li))
         u2 = uniform(seed, bounce_counter(bounce, 5 + 2 * li))
         direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
-        lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo, any_hit,
-                          shadow_fn)
+        with torch.no_grad():
+            t_light = _t_light(p, direction, center, radius)
         # lambertian f = albedo / pi; with the balance heuristic
         # f * w / pdf = f / (pdf_light + pdf_bsdf)
         p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
-        contrib = throughput * albedo * (p_b / (pdf + p_b))
-        total = vec.where(lit, total + contrib * _light_emission(scene, li), total)
-    return total
+        contrib = throughput * albedo * (p_b / (pdf + p_b)) * _light_emission(scene, li)
+        terms.append(NeeTerm("light", contrib, p, direction, t_light, diffuse & valid, lo))
+    return terms
 
 
-def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit,
-                       shadow_fn):
+def _nee_sampled_sample(scene, p, n, diffuse, albedo, throughput, seed, bounce) -> NeeTerm:
     """One sphere light per lane, chosen uniformly, its contribution
     weighted by the light count.  The lane's light row [centre, radius,
     emission, object] comes from one ``table_rows`` fetch of an (nl, 8)
-    table whose emission columns are rows of ``materials.emission``."""
+    table whose emission columns are rows of ``materials.emission``; the
+    light the shadow ray's sphere test skips is per lane."""
     nl = len(scene.s_light_objs)
     dev = p.x.device
     li = torch.clamp((uniform(seed, bounce_counter(bounce, 4)) * nl).long(), max=nl - 1)
@@ -283,15 +297,16 @@ def _nee_sampled_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, a
     u1 = uniform(seed, bounce_counter(bounce, 5))
     u2 = uniform(seed, bounce_counter(bounce, 6))
     direction, pdf, valid = sample_light_sphere(center, radius, p, u1, u2)
-    lit = _shadow_lit(scene, p, direction, center, radius, diffuse & valid, lo_lane, any_hit,
-                      shadow_fn)
+    with torch.no_grad():
+        t_light = _t_light(p, direction, center, radius)
     # the technique's pdf is pdf / nl: f * w / (pdf / nl) = f * nl / (pdf + nl * pdf_bsdf)
     p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
     scale = p_b * float(nl) / (pdf + float(nl) * p_b)
-    return vec.where(lit, throughput * albedo * scale * emit, _zero3(p_b))
+    return NeeTerm("sampled", throughput * albedo * scale * emit, p, direction, t_light,
+                   diffuse & valid, lo_lane)
 
 
-def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_hit, shadow_fn):
+def _nee_mesh_sample(scene, p, n, diffuse, albedo, throughput, seed, bounce) -> NeeTerm:
     """One point per lane on the emissive-mesh triangles: a triangle
     chosen by area (the CDF inverted by a dense compare-count over the
     <= 512 light triangles), a uniform barycentric point, the lights
@@ -318,19 +333,48 @@ def _nee_mesh_light(scene, p, n, diffuse, albedo, throughput, seed, bounce, any_
     # the window stops short of the sampled triangle, which must not
     # occlude itself; no sphere is this light
     t_limit = dist * (1.0 - 1e-3)
-    if shadow_fn is None:
-        occ = occlusion_anyhit(scene, p, direction, torch.full_like(dist, 1e-4), t_limit, valid,
-                               -1, any_hit)
-    else:
-        ids, _ = shadow_fn(scene, p, direction, torch.full_like(dist, 1e-4), valid)
-        occ = (ids.kind != PRIM_NONE) & (ids.t <= t_limit)
     # f * w / pdf_tech with pdf_tech = dist^2 / (cos_l * A), multiplied
     # through by cos_l * A so that a grazing light divides by nothing small
     p_b = torch.clamp(n.dot(direction), min=0.0) * INV_PI
     cla = cos_l * scene.tri_light_area
     scale = p_b * cla / (dist2 + p_b * cla)
     emit = Vec3(*table_rows(scene.materials.emission, lmat).unbind(1))
-    return vec.where(valid & ~occ, throughput * albedo * scale * emit, _zero3(p_b))
+    return NeeTerm("mesh", throughput * albedo * scale * emit, p, direction, t_limit, valid, -1)
+
+
+@torch.no_grad()
+def _shadow_lit(scene, term: NeeTerm, any_hit, shadow_fn):
+    """The lanes of ``term`` whose shadow ray reaches the light: the
+    any-hit test of its window, the light itself excluded
+    (``intersect.occlusion_anyhit``).  With ``shadow_fn`` (a reference
+    intersector, see ``_closest_hit_shadows``), its closest hit from 1e-4
+    on: a sphere light is lit where that hit is the light, a mesh point
+    where nothing is hit before ``t_limit``; the two agree except at
+    exact-t ties."""
+    t_min = torch.full_like(term.t_limit, 1e-4)
+    if shadow_fn is not None:
+        ids, _ = shadow_fn(scene, term.p, term.direction, t_min, term.active)
+        if term.kind == "mesh":
+            return term.active & ~((ids.kind != PRIM_NONE) & (ids.t <= term.t_limit))
+        return term.active & (ids.obj_id == term.light)
+    return term.active & ~occlusion_anyhit(scene, term.p, term.direction, t_min, term.t_limit,
+                                           term.active, term.light, any_hit)
+
+
+def _nee_resolve(terms, lits, like) -> Vec3:
+    """The resolve step: the terms' contributions on their lit lanes,
+    added in ``_nee_samples``'s order (the mesh term first, then each
+    unrolled light, or the sampled light's)."""
+    zero = _zero3(like)
+    total = zero
+    for term, lit in zip(terms, lits):
+        if term.kind == "mesh":
+            total = vec.where(lit, term.contrib, zero)
+        elif term.kind == "light":
+            total = vec.where(lit, total + term.contrib, total)
+        else:
+            total = total + vec.where(lit, term.contrib, zero)
+    return total
 
 
 def _closest_hit_shadows(intersect_fn) -> bool:
@@ -354,7 +398,11 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
     leaves the hit to ``refine_hit`` from the ids, forward and
     differentiably.  ``any_hit`` is the shadow rays' mesh sweep
     (``packets.intersect_treelets_anyhit``); a reference intersector
-    traces the shadow rays itself (``_closest_hit_shadows``)."""
+    traces the shadow rays itself (``_closest_hit_shadows``).
+
+    The bounce is ``_bounce_shade`` (up to NEE's sample step), each NEE
+    term's shadow test, and ``_bounce_finish`` (NEE's resolve step and
+    roulette); the trip route's twins are assembled from the same two."""
     alive = state["alive"]
     ids, extra = intersect_fn(scene, state["ro"], state["rd"], state["t_min"], alive)
     if use_refine or extra is None:
@@ -364,6 +412,22 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
         hit = refine_hit(scene, state["ro"], state["rd"], state["t_min"], ids, tri_vals)
     else:
         hit = extra
+    out, terms = _bounce_shade(scene, seed, state, bounce, ids, hit)
+    nee = None
+    if scene.has_nee:
+        shadow_fn = intersect_fn if _closest_hit_shadows(intersect_fn) else None
+        nee = _nee_resolve(terms, [_shadow_lit(scene, t, any_hit, shadow_fn) for t in terms],
+                           hit.t)
+    return _bounce_finish(out, seed, bounce, rr_start, nee)
+
+
+def _bounce_shade(scene, seed, state, bounce, ids, hit):
+    """The bounce on its hit record (``ids``, ``hit``) up to NEE's shadow
+    rays: background, the first hit's normal and depth, ``shade``, the
+    (MIS-weighted) emission and, for a scene with emitters, NEE's sample
+    step.  Returns (the state after the bounce, before NEE's sum and
+    roulette; the ``NeeTerm`` list, empty without emitters)."""
+    alive = state["alive"]
     hit_alive = alive & hit.mask
     miss = alive & ~hit.mask
 
@@ -382,10 +446,6 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
         scene, hit, state["ro"], state["rd"], state["t_min"], state["color"], seed, bounce
     )
     radiance = _weighted_emission(scene, radiance, state, ids, hit, emitted, absorb, hit_alive)
-    if scene.has_nee:
-        shadow_fn = intersect_fn if _closest_hit_shadows(intersect_fn) else None
-        radiance = radiance + _nee_direct_light(scene, hit, state["color"], seed, bounce, alive,
-                                                any_hit, shadow_fn)
     out = dict(
         ro=vec.where(hit_alive, new_ro, state["ro"]),
         rd=vec.where(hit_alive, new_rd, state["rd"]),
@@ -396,9 +456,20 @@ def _bounce_body(scene, seed, state, bounce, rr_start, intersect_fn, use_refine=
         normal=normal,
         depth=depth,
     )
+    terms = []
     if scene.has_nee:
         out.update(spec=torch.where(hit_alive, specular, state["spec"]),
                    pdf_w=torch.where(hit_alive, new_pdf, state["pdf_w"]))
+        terms = _nee_samples(scene, hit, state["color"], seed, bounce, alive)
+    return out, terms
+
+
+def _bounce_finish(out, seed, bounce, rr_start, nee=None):
+    """The rest of the bounce on ``_bounce_shade``'s state: NEE's sum
+    ``nee`` (``_nee_resolve``; None without emitters) added to the
+    radiance, then roulette.  Returns the state after the bounce."""
+    if nee is not None:
+        out["radiance"] = out["radiance"] + nee
     if rr_start is not None:
         # survivors divide throughput by the survival probability; killed
         # lanes keep the radiance collected so far
@@ -514,38 +585,54 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
     return _chain_buffers(ch, it0, spp), ch["segs"].sum()
 
 
-def render_route(scene: SceneArrays, differentiable: bool = False, intersect_fn=None) -> str:
+def render_route(scene: SceneArrays, differentiable: bool = False, intersect_fn=None,
+                 any_hit=None) -> str:
     """Which loop a render takes, chosen from the call before any launch:
     "trip" (``trip_kernel``: the sphere pass and the sweep's rows in
-    ``trip_head``, the hit record, shading, roulette and, chained, the fold
-    and restart in ``trip_tail``) for a forward render of a scene without
-    emitters through the default hit pass; "body" (``_bounce_body``) for
-    NEE scenes, whose shadow rays need the any-hit sweep between shading
-    and emission, for differentiable renders, and for any other
-    ``intersect_fn`` (the reference intersectors, which share no code with
-    what they check, or a sweep passed in)."""
-    if differentiable or scene.has_nee or intersect_fn not in (None, intersect_scene_ids):
+    ``trip_head``; with emitters the body up to NEE's shadow rays in
+    ``trip_nee`` and the any-hit sweep on their rows; NEE's sum, roulette
+    and, chained, the fold and restart in ``trip_tail``) for a forward
+    render through the default hit pass and, with emitters, the default
+    shadow sweep; "body" (``_bounce_body``) for differentiable renders,
+    for any other ``intersect_fn`` (the reference intersectors, which
+    share no code with what they check, or a sweep passed in) and, on a
+    scene with emitters, for any other ``any_hit``."""
+    if differentiable or intersect_fn not in (None, intersect_scene_ids):
+        return "body"
+    if scene.has_nee and any_hit not in (None, sweep_kernel.treelet_any_hit):
         return "body"
     return "trip"
+
+
+def _nee_kinds(scene) -> tuple:
+    """The kinds of ``_nee_samples``'s terms, in its order."""
+    nl = len(scene.s_light_objs)
+    mesh = ("mesh",) if scene.s_tri_light_count > 0 else ()
+    return mesh + (("sampled",) if nl > NEE_UNROLL_MAX else ("light",) * nl)
 
 
 def _trip_plan(scene, camera, width, height, *, spp, max_bounces, rr_start, iteration, chained,
                row0=0, rows=None) -> tk.TripPlan:
     """The trip route's plan of a render of the band of ``rows`` rows
     from ``row0`` (``rows`` None: the whole image), with the body route's
-    functions that the twin of ``trip_tail`` is assembled from."""
+    functions that the twins of ``trip_nee`` and ``trip_tail`` are
+    assembled from."""
     pix = _band_pixels(width, height if rows is None else rows, row0, scene.device)
     camera = camera.to(scene.device)
 
-    def body(st, seed, bounce, hit):
-        return _bounce_body(scene, seed, st, bounce, rr_start, lambda *_: hit)
+    def shade(st, seed, bounce, ids, hit):
+        return _bounce_shade(scene, seed, st, bounce, ids, hit)
+
+    def finish(out, seed, bounce, nee):
+        return _bounce_finish(out, seed, bounce, rr_start, nee)
 
     def fold(st, st2, seed, bounce, ch):
         return _chain_step(scene, camera, width, height, pix, iteration, spp, max_bounces, st, st2,
                            seed, bounce, ch)
 
     return tk.TripPlan(scene, camera, width, height, row0 * width, pix, spp, max_bounces,
-                       rr_start, iteration, chained, body, fold)
+                       rr_start, iteration, chained, shade, finish, _nee_resolve, fold,
+                       _nee_kinds(scene))
 
 
 def _trip_start(plan: tk.TripPlan):
@@ -558,10 +645,13 @@ def _trip_start(plan: tk.TripPlan):
 
 def _run_trips(plan):
     """The trip route's loop: per trip ``trip_head``, the closest-hit
-    sweep on its packed rows (scenes with a mesh), ``trip_tail``, and one
-    4-byte read of the lanes still to trace.  Returns the lane state (F,
-    I) after the last trip."""
+    sweep on its packed rows (scenes with a mesh), with emitters
+    ``trip_nee`` and the any-hit sweep on its shadow rows (every NEE term
+    in one call; scenes with a mesh), ``trip_tail``, and one 4-byte read
+    of the lanes still to trace.  Returns the lane state (F, I) after the
+    last trip."""
     scene = plan.scene
+    tre = (scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
     F, I = _trip_start(plan)
     buf = tk.trip_buffers(plan)
     remaining = plan.n
@@ -569,12 +659,15 @@ def _run_trips(plan):
         if remaining == 0:
             break
         tk.trip_head(plan, F, I, buf)
-        sweep = None
-        if plan.mesh:
-            sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, scene.tre_min,
-                                                     scene.tre_max, scene.tre_tris,
-                                                     scene.s_leaf_size)
-        tk.trip_tail(plan, F, I, buf, sweep)
+        sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre) if plan.mesh \
+            else None
+        if plan.nee:
+            tk.trip_nee(plan, F, I, buf, sweep)
+            occ = sweep_kernel.treelet_any_hit(buf.shadow_rows, buf.nee_mask, *tre) \
+                if plan.mesh else None
+            tk.trip_tail(plan, F, I, buf, occ=occ)
+        else:
+            tk.trip_tail(plan, F, I, buf, sweep)
         # TPUPT_DEBUG=1 guards on the trip's outputs (nothing when unset)
         debug.check_finite("bounce radiance/throughput", *tk.rows(F, tk.RADIANCE + tk.COLOR))
         debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
@@ -645,10 +738,10 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     every rank of the group runs as many bounces as the rank whose band
     lives longest, so that the ranks' collectives pair up.
 
-    A forward sample of a scene without emitters through the default hit
-    pass runs the trip kernels (``render_route``)."""
+    A forward sample through the default hit pass and shadow sweep runs
+    the trip kernels (``render_route``)."""
     rows = height if rows is None else rows
-    if render_route(scene, differentiable, intersect_fn) == "trip":
+    if render_route(scene, differentiable, intersect_fn, any_hit) == "trip":
         return _trace_sample_trips(scene, camera, width, height, iteration, max_bounces,
                                    rr_start, row0, rows)
     tri_table = None
@@ -752,8 +845,7 @@ def render_image(
     ``grad_psum_overlap`` are ``trace_sample``'s.
 
     ``render_route`` picks the loop: the trip kernels for a forward render
-    of a scene without emitters through the default hit pass, else
-    ``_bounce_body``."""
+    through the default hit pass and shadow sweep, else ``_bounce_body``."""
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)
@@ -767,7 +859,7 @@ def render_image(
         if not chain_samples:
             return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
                                    start_iteration, False, intersect_fn, any_hit, **band)
-        if render_route(scene, False, intersect_fn) == "trip":
+        if render_route(scene, False, intersect_fn, any_hit) == "trip":
             return _render_chained_trips(scene, camera, width, height, spp, max_bounces,
                                          rr_start, start_iteration, **band)
         return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,

@@ -254,18 +254,14 @@ intersect_scene_ids_bvh.closest_hit_shadows = True
 
 
 @torch.no_grad()
-def occlusion_anyhit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, active,
-                     exclude_obj, any_hit=None):
-    """The shadow test: True where some geometry other than sphere object
-    ``exclude_obj`` (the sampled light) hits an active lane's ray at t in
-    [t_min, t_limit].
+def sphere_occlusion(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, active, exclude_obj):
+    """The sphere half of the shadow test: True where a sphere object other
+    than ``exclude_obj`` hits an active lane's ray at t in [t_min,
+    t_limit], by the closest-hit pass's quadratic.
 
     ``exclude_obj`` is an int, the same light for every lane (its sphere
     test is skipped), or a per-lane tensor (the test runs and is masked
-    per lane); -1 excludes nothing.  Spheres run the closest-hit pass's
-    quadratic against the window; meshes run the any-hit sweep
-    (``packets.intersect_treelets_anyhit``, with ``any_hit`` as there) on
-    the lanes no sphere occludes.  Nothing here is seen by autograd."""
+    per lane); -1 excludes nothing."""
     static_ex = isinstance(exclude_obj, int)
     occ = torch.zeros_like(active)
     for o, (okind, oprim) in enumerate(zip(scene.s_obj_kind, scene.s_obj_prim)):
@@ -273,6 +269,20 @@ def occlusion_anyhit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, act
             continue
         take = active & _sphere_roots(scene, o, oprim, ro, rd, t_min, t_limit)[0]
         occ = occ | (take if static_ex else take & (exclude_obj != o))
+    return occ
+
+
+@torch.no_grad()
+def occlusion_anyhit(scene: SceneArrays, ro: Vec3, rd: Vec3, t_min, t_limit, active,
+                     exclude_obj, any_hit=None):
+    """The shadow test: True where some geometry other than sphere object
+    ``exclude_obj`` (the sampled light; as ``sphere_occlusion`` takes it)
+    hits an active lane's ray at t in [t_min, t_limit].
+
+    Spheres run ``sphere_occlusion``; meshes run the any-hit sweep
+    (``packets.intersect_treelets_anyhit``, with ``any_hit`` as there) on
+    the lanes no sphere occludes.  Nothing here is seen by autograd."""
+    occ = sphere_occlusion(scene, ro, rd, t_min, t_limit, active, exclude_obj)
     if _has_mesh(scene):
         occ = occ | intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active & ~occ,
                                               any_hit=any_hit)
