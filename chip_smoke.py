@@ -3,9 +3,15 @@ kernels from the sources in this checkout, holds each against its torch
 twin at the main path's shapes, renders the bunny scene at full size and
 checks the result (the forward trip's kernels, trip_head and trip_tail,
 held to their twins on trips of that render and the render to the
-``_bounce_body`` route's, in turns), then takes the gradient of a full-size differentiable
-render with respect to every scene parameter, holds it against the twin's
-at 256^2 and runs the denoiser's backward pass.  Then next-event
+``_bounce_body`` route's, in turns), then takes the gradient of a
+full-size differentiable render with respect to every scene parameter
+through the differentiable trip (trip_head, the payload sweep and
+diff_trip_fwd a bounce; diff_trip_bwd and slot_scatter a bounce
+backward), in turns with the ``_bounce_body`` route (the forward
+bit-equal, the gradients within 1e-4), the three kernels held to their
+twins on bounces 0, 2 and the last of a sample, holds the gradient against
+the body route on the sweep's twin at 256^2 and runs the denoiser's
+backward pass.  Then next-event
 estimation: the any-hit shadow kernels against their twin on sparse,
 mixed and dense packets (and both forms of the closest-hit kernel on the
 area-light scene's own rays), the two Cornell scenes rendered at
@@ -48,8 +54,9 @@ it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
   * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
     its launches on its main path (the forward render; the fwd+bwd step
-    for the payload form; the cornell_area render for the any-hit kernel
-    and trip_nee), and the trip kernels' (the forward render),
+    for the payload form and the differentiable trip's three kernels; the
+    cornell_area render for the any-hit kernel and trip_nee), and the trip
+    kernels' (the forward render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
     in a fit step and in each of phase 16's band renders,
@@ -94,7 +101,8 @@ from tpupt_torch.dist.sharding import (  # noqa: E402
 )
 from tpupt_torch.interactive.camera_controller import FirstPersonCameraController  # noqa: E402
 from tpupt_torch.interactive.viewer import InteractiveViewer  # noqa: E402
-from tpupt_torch.render import integrator, intersect, trip_kernel, wavefront  # noqa: E402
+from tpupt_torch.accel.slot_scatter import slot_scatter, slot_scatter_plain  # noqa: E402
+from tpupt_torch.render import diff_trip, integrator, intersect, trip_kernel, wavefront  # noqa: E402
 from tpupt_torch.render.materials import shade  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
@@ -803,20 +811,22 @@ pay_secondary = compare_payload("secondaries after bounce 0", scene_r,
 
 # --- 4 -------------------------------------------------------------------
 phase(f"4 main path: bunny.json render {SIZE}^2, {SPP} spp, {MAX_BOUNCES} bounces, rr {RR}")
-counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step, sweep_kernel.treelet_any_hit)
+counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step, sweep_kernel.treelet_any_hit,
+           slot_scatter)
 
 
 def reset_counts():
     for w in counted:
         w.launches = 0
     sweep_kernel.treelet_closest_hit.payload_launches = 0
-    for k in trip_kernel.LAUNCHES:
-        trip_kernel.LAUNCHES[k] = 0
+    for table in (trip_kernel.LAUNCHES, diff_trip.LAUNCHES):
+        for k in table:
+            table[k] = 0
 
 
 def read_counts():
     return dict(sweep_kernel.launch_counts(), winner_step=step_kernel.winner_step.launches,
-                **trip_kernel.launch_counts())
+                **trip_kernel.launch_counts(), **diff_trip.launch_counts())
 
 
 reset_counts()
@@ -967,7 +977,9 @@ print(f"ray count equal: {int(rk)}")
 
 # --- 6 -------------------------------------------------------------------
 phase(f"6 main path, fwd+bwd: bunny.json {SIZE}^2, {DIFF_SPP} spp, {DIFF_BOUNCES} bounces, "
-      f"loss sum(color^2), backward to every extract_params leaf")
+      f"loss sum(color^2), backward to every extract_params leaf; the diff_trip route and the "
+      f"body route in turns; diff_trip_fwd, diff_trip_bwd and slot_scatter vs their twins on "
+      f"bounces 0, 2 and the last of a sample")
 
 
 def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None, denoise=False,
@@ -999,26 +1011,37 @@ def fwd_bwd(size=SIZE, spp=DIFF_SPP, max_bounces=DIFF_BOUNCES, intersect_fn=None
     return loss.detach(), int(rays), dict(zip(LEAVES, grads)), buf, t1 - t0, t2 - t1
 
 
+# the same ids pass wrapped: render_route sends it to the body route
+# (autograd over ``_bounce_body``, the fetch's backward in slot_scatter)
+BODY_DIFF = functools.partial(intersect.intersect_scene_ids_diff)
+assert integrator.render_route(scene, True) == "diff_trip"
+assert integrator.render_route(scene, True, BODY_DIFF) == "body"
 torch.cuda.synchronize()
 torch.cuda.reset_peak_memory_stats()
 mem0 = torch.cuda.memory_allocated()
 reset_counts()
 t0 = time.perf_counter()
-d_loss, d_rays, d_grads, _, _, _ = fwd_bwd()
+d_loss, d_rays, d_grads, d_buf, _, _ = fwd_bwd()
 torch.cuda.synchronize()
 d_first_s = time.perf_counter() - t0
 d_launches = read_counts()
 d_peak = torch.cuda.max_memory_allocated() - mem0
-assert d_launches["treelet_closest_hit(payload=True)"] > 0, d_launches
 assert d_launches["treelet_closest_hit"] == 0 and d_launches["winner_step"] == 0, d_launches
-assert d_launches["trip_tail"] == 0, d_launches  # differentiable: the body route
+# the main path is the differentiable trip: a bounce is trip_head, the
+# payload sweep and diff_trip_fwd, its backward diff_trip_bwd and, the
+# positions wanting a gradient, slot_scatter; no trip_tail
+assert (d_launches["diff_trip_fwd"] == d_launches["trip_head"]
+        == d_launches["treelet_closest_hit(payload=True)"] > 0), d_launches
+assert (d_launches["diff_trip_bwd"] == d_launches["slot_scatter"]
+        == d_launches["diff_trip_fwd"]), d_launches
+assert d_launches["trip_tail"] == d_launches["trip_nee"] == 0, d_launches
 assert d_rays > n, d_rays
 assert bool(torch.isfinite(d_loss)), d_loss
 for k, g in d_grads.items():
     assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k}"
 assert float(d_grads["positions"].abs().max()) > 0, "no gradient reached the vertex positions"
-print(f"first call {d_first_s:.3f} s; launches {d_launches}; {d_rays} primal segments; "
-      f"loss {float(d_loss):.6g}; peak memory {d_peak / 2**30:.2f} GiB above the "
+print(f"first call {d_first_s:.3f} s; the diff_trip route; launches {d_launches}; {d_rays} primal "
+      f"segments; loss {float(d_loss):.6g}; peak memory {d_peak / 2**30:.2f} GiB above the "
       f"{mem0 / 2**30:.2f} GiB resident before it")
 print("  max |grad|: " + ", ".join(f"{k} {float(g.abs().max()):.4g}" for k, g in d_grads.items()))
 d_walls, d_split = [], []
@@ -1035,40 +1058,300 @@ print(f"calls 2-4: {', '.join(f'{w:.3f}' for w in d_walls)} s wall; median {d_wa
       f"{d_rays / d_wall / 1e6:.3f} fwd+bwd Mrays/s (primal segments)  [{smi}]")
 print("  forward + loss / backward: " + ", ".join(f"{f:.3f} / {b:.3f} s" for f, b in d_split))
 del loss2, grads2
-# device time of one more step, by kernel and by op
-acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-with torch.profiler.profile(activities=acts) as prof:
-    fwd_bwd()
+
+# the two routes in turns (diff_trip, body, body, diff_trip), one process:
+# the forward bit-equal (loss, image, normal, depth, segments), every
+# gradient within BASELINE's 1e-4 (rtol, and 1e-4 x the leaf's max |grad|)
+route_steps, d_grads_body = {"diff_trip": [], "body": []}, None
+for route in ("diff_trip", "body", "body", "diff_trip"):
     torch.cuda.synchronize()
-kav = prof.key_averages()
-with open(os.path.join(OUT, "fwd_bwd_profile.txt"), "w") as fh:
-    fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    l_r, r_r, g_r, b_r, f_s, b_s = fwd_bwd(intersect_fn=BODY_DIFF if route == "body" else None)
+    torch.cuda.synchronize()
+    w_r = time.perf_counter() - t0
+    c_r, peak_r = read_counts(), torch.cuda.max_memory_allocated() - m0
+    assert (c_r["diff_trip_fwd"] > 0) == (route == "diff_trip") and c_r["trip_tail"] == 0, c_r
+    assert r_r == d_rays and torch.equal(l_r, d_loss), (route, r_r, float(l_r), float(d_loss))
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(b_r, key), getattr(d_buf, key)), f"{route} route: {key} differs"
+    gap = {}
+    for k in LEAVES:
+        scale = float(d_grads[k].abs().max())
+        assert torch.allclose(g_r[k], d_grads[k], rtol=1e-4, atol=1e-4 * scale), (route, k)
+        gap[k] = float((g_r[k] - d_grads[k]).abs().max()) / scale if scale > 0 else 0.0
+    route_steps[route].append(dict(wall_s=w_r, forward_s=f_s, backward_s=b_s, peak_bytes=peak_r,
+                                   grad_gap=max(gap.values()), launches=c_r))
+    if route == "body" and d_grads_body is None:
+        d_grads_body = g_r  # phase 16's per-bounce placement runs this route
+    del l_r, g_r, b_r
+# device time of one more step of each route, by kernel and by op
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
 def dev_total(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
 
-on_card = [e for e in kav if e.device_type == torch.autograd.DeviceType.CUDA]
-d_busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-d_sweep = [e for e in kav if "treelet_closest_hit_kernel" in e.key]
-d_sweep_ms = sum(e.self_device_time_total for e in d_sweep) / 1e3
-d_index_add = [e for e in kav if e.key == "aten::index_add_"]
-d_index_add_ms = sum(dev_total(e) for e in d_index_add) / 1e3
-d_kernels = sum(e.count for e in on_card)
-if d_busy_ms > 0:
-    print(f"profiled step: device busy {d_busy_ms:.1f} ms = {d_busy_ms / 1e3 / d_wall:.1%} of the "
-          f"median wall; payload sweep {d_sweep_ms:.1f} ms in {sum(e.count for e in d_sweep)} launches; "
-          f"index_add_ {d_index_add_ms:.1f} ms in {sum(e.count for e in d_index_add)} calls; "
-          f"~{d_kernels} kernels")
-else:
-    print("profiled step: the profiler recorded no device time (not measured)")
+route_prof = {}
+for route, fname in (("diff_trip", "fwd_bwd_profile.txt"), ("body", "fwd_bwd_body_profile.txt")):
+    with torch.profiler.profile(activities=acts) as prof:
+        fwd_bwd(intersect_fn=BODY_DIFF if route == "body" else None)
+        torch.cuda.synchronize()
+    kav = prof.key_averages()
+    with open(os.path.join(OUT, fname), "w") as fh:
+        fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
+    on_card = [e for e in kav if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(name):
+        return sum(e.self_device_time_total for e in on_card if name in e.key) / 1e3
+
+    index_add = [e for e in kav if e.key == "aten::index_add_"]
+    route_prof[route] = dict(
+        busy_ms=sum(e.self_device_time_total for e in on_card) / 1e3,
+        kernels=sum(e.count for e in on_card), sweep_ms=dev_ms("treelet_closest_hit_kernel"),
+        sweep_launches=sum(e.count for e in on_card if "treelet_closest_hit_kernel" in e.key),
+        **{f"{k}_ms": dev_ms(f"{k}_kernel") for k in ("trip_head", "diff_trip_fwd",
+                                                      "diff_trip_bwd", "slot_scatter")},
+        index_add_calls=sum(e.count for e in index_add),
+        index_add_ms=sum(dev_total(e) for e in index_add) / 1e3)
+for route in ("diff_trip", "body"):
+    st, pr = route_steps[route], route_prof[route]
+    walls = [x["wall_s"] for x in st]
+    wall_r = sum(walls) / len(walls)
+    print(f"{route} route: walls {', '.join(f'{w:.3f}' for w in walls)} s "
+          f"({d_rays / wall_r / 1e6:.3f} fwd+bwd Mrays/s); forward / backward "
+          + ", ".join(f"{x['forward_s']:.3f} / {x['backward_s']:.3f}" for x in st)
+          + " s; peak " + ", ".join(f"{x['peak_bytes'] / 2**30:.2f}" for x in st) + " GiB; largest "
+          f"gradient gap to the first step's {max(x['grad_gap'] for x in st):.3g} of its leaf's "
+          f"max |grad|  [{smi}]")
+    if pr["busy_ms"] > 0:
+        print(f"  profiled: device busy {pr['busy_ms']:.1f} ms = {pr['busy_ms'] / 1e3 / wall_r:.1%} "
+              f"of the mean wall, {pr['kernels']} kernels; the payload sweep {pr['sweep_ms']:.1f} "
+              f"ms in {pr['sweep_launches']}, trip_head {pr['trip_head_ms']:.2f}, diff_trip_fwd "
+              f"{pr['diff_trip_fwd_ms']:.2f}, diff_trip_bwd {pr['diff_trip_bwd_ms']:.2f}, "
+              f"slot_scatter {pr['slot_scatter_ms']:.2f} ms; index_add_ {pr['index_add_ms']:.1f} "
+              f"ms in {pr['index_add_calls']} calls (not the fetch's, which is slot_scatter on "
+              f"both routes: the positions' gather backward in world_slot_tris, 3 a sample, and "
+              f"on the diff_trip route the sphere leaves' sum per primitive, 1 a sample)")
+    else:
+        print("  profiled: the profiler recorded no device time (not measured)")
+d_busy_ms, d_kernels = route_prof["diff_trip"]["busy_ms"], route_prof["diff_trip"]["kernels"]
+d_sweep_ms, d_index_add_ms = route_prof["diff_trip"]["sweep_ms"], route_prof["diff_trip"]["index_add_ms"]
+print(f"the two routes' steps: the forward bit-equal, {d_rays} segments each; body/diff_trip mean "
+      f"wall {sum(x['wall_s'] for x in route_steps['body']) / sum(x['wall_s'] for x in route_steps['diff_trip']):.2f}")
+del d_buf
+
+# the three kernels against their twins on bounces 0, 2 and the last of
+# the first sample of one more step: diff_trip_fwd every output exact (the
+# residuals it writes); diff_trip_bwd's cotangent rows, leaf gradients and
+# slot table gradient within rtol 1e-5 (floor 1e-5 x the row's, leaf's or
+# column's max) of the twin's VJP; slot_scatter on that bounce's winner
+# cotangents against index_add_ (the body route's old call) and its twin.
+# Times on the device (``kernel_ms``), by events over the kernel's
+# wrapper, the twins'; work by what each lane's case needs (each input
+# read once, each output written once), float operations estimated from the source
+# (sinf and cosf at 20 each): a hit lane's forward (refine, shading,
+# roulette) and its backward (the forward again and the hand VJP)
+DIFF_HIT_FLOPS, DIFF_BWD_HIT_FLOPS, DIFF_MISS_FLOPS = 340, 800, 60
+rec_fwd, rec_bwd, first_dp = {}, {}, []
+fwd_w, bwd_w = diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd
+
+
+def recording_fwd(dp, F, I, buf, sweep, b, res=None):
+    if not first_dp:
+        first_dp.append(dp)
+    if dp is first_dp[0]:
+        rec_fwd[b] = dict(dp=dp, F=F.clone(), I=I.clone(), hint=buf.hint.clone(),
+                          sweep=None if sweep is None else tuple(o.clone() for o in sweep))
+    return fwd_w(dp, F, I, buf, sweep, b, res)
+
+
+def recording_bwd(dp, G, res, seed, b, gtab, g_slot=None):
+    if dp is first_dp[0]:
+        rec_bwd[b] = dict(G=G.clone(), res=res, seed=seed)
+    return bwd_w(dp, G, res, seed, b, gtab, g_slot)
+
+
+diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = recording_fwd, recording_bwd
+try:
+    fwd_bwd()
+finally:
+    diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = fwd_w, bwd_w
+diff_dp = first_dp[0]
+LAST_BOUNCE = max(rec_fwd)
+assert sorted(rec_fwd) == sorted(rec_bwd) == list(range(LAST_BOUNCE + 1)), (rec_fwd, rec_bwd)
+for b in list(rec_fwd):
+    if b not in (0, 2, LAST_BOUNCE):
+        del rec_fwd[b], rec_bwd[b]
+diff_checks = {}
+for b in (0, 2, LAST_BOUNCE):
+    rf, rb = rec_fwd.pop(b), rec_bwd.pop(b)
+    plan, n_l = diff_dp.trip, diff_dp.trip.n
+    # diff_trip_fwd and its twin from the recorded state
+    runs = []
+    for fn in (fwd_w, diff_trip.diff_trip_fwd_plain):
+        Fx, Ix, bx = rf["F"].clone(), rf["I"].clone(), trip_kernel.trip_buffers(plan)
+        bx.hint.copy_(rf["hint"])
+        rx = diff_trip.residuals(n_l, DEV)
+        rx.f.zero_()
+        fn(diff_dp, Fx, Ix, bx, rf["sweep"], b, rx)
+        runs.append((Fx, Ix, rx, bx))
+    torch.cuda.synchronize()
+    (Fk, Ik, rk, bk_), (Fp, Ip, rp, bp_) = runs
+    require_equal_state(f"diff_trip_fwd bounce {b}", (Fk, Ik), (Fp, Ip))
+    require_equal(f"diff_trip_fwd bounce {b} residuals and count",
+                  [rk.i, bk_.count], [rp.i, bp_.count])
+    code = rk.i[0]
+    live = code != diff_trip.DEAD
+    written = diff_trip.res_written(code)
+    require_equal(f"diff_trip_fwd bounce {b} residuals written", [rk.f[written]], [rp.f[written]])
+    res_b = rb["res"]
+    assert torch.equal(res_b.i, rk.i) and torch.equal(res_b.f[written], rk.f[written]), \
+        f"bounce {b}: the step's residuals differ from the recorded forward's"
+
+    def restore_fwd():
+        Fk.copy_(rf["F"])
+        Ik.copy_(rf["I"])
+
+    def call_fwd():
+        fwd_w(diff_dp, Fk, Ik, bk_, rf["sweep"], b, rk)
+
+    fwd_ms = events_ms(restore_fwd, call_fwd, 10)
+    fwd_dev = kernel_ms(restore_fwd, call_fwd, 10)
+    fwd_plain = events_ms(restore_fwd, lambda: diff_trip.diff_trip_fwd_plain(
+        diff_dp, Fk, Ik, bp_, rf["sweep"], b, rp), 1)
+    # diff_trip_bwd and its twin's VJP on the step's own cotangent, the
+    # slot table's gradient included (the kernel's winner cotangents
+    # through slot_scatter, the twin's through _FetchTriRows)
+    runs = []
+    for fn in (bwd_w, diff_trip.diff_trip_bwd_plain):
+        Gx, gtab = rb["G"].clone(), diff_trip.leaf_table_zeros(plan)
+        g_slot = torch.zeros_like(diff_dp.table)
+        fn(diff_dp, Gx, res_b, rb["seed"], b, gtab, g_slot)
+        runs.append((Gx, diff_trip.split_leaf_table(plan, gtab), g_slot))
+    torch.cuda.synchronize()
+    (Gk, lk, gsk), (Gp, lp, gsp) = runs
+    bwd_gaps = {}  # per row, leaf and slot table column: |kernel - twin| over its max
+    for label, a, c in ([(f"G[{k}]", Gk[j], Gp[j]) for j, k in enumerate(diff_trip.G_KEYS)]
+                        + [(k, lk[k], lp[k]) for k in lp]
+                        + [(f"g_slot[:, {j}]", gsk[:, j], gsp[:, j]) for j in range(9)]):
+        scale = float(c.abs().max()) if c.numel() else 0.0
+        bwd_gaps[label] = float((a - c).abs().max()) / scale if scale > 0 else 0.0
+        assert torch.allclose(a, c, rtol=1e-5, atol=1e-5 * scale), \
+            f"diff_trip_bwd bounce {b}: {label} (gaps {bwd_gaps})"
+    bwd_gap = max(bwd_gaps.values())
+    bwd_err = max(float((Gk - Gp).abs().max()), max(float((lk[k] - lp[k]).abs().max()) for k in lp),
+                  float((gsk - gsp).abs().max()))
+    # the kernel alone as the step launches it (the winner cotangents into
+    # tricot; slot_scatter is timed below), its twin with the slot table's
+    # gradient
+    gtk, tck = diff_trip.leaf_table_zeros(plan), torch.empty((9, n_l), device=DEV)
+
+    def restore_bwd():
+        Gk.copy_(rb["G"])
+        gtk.zero_()
+
+    def call_bwd():
+        diff_trip.diff_trip_bwd_lanes(diff_dp, Gk, res_b, rb["seed"], b, gtk, tck)
+
+    bwd_ms = events_ms(restore_bwd, call_bwd, 10)
+    bwd_dev = kernel_ms(restore_bwd, call_bwd, 10)
+    bwd_plain = events_ms(restore_bwd, lambda: diff_trip.diff_trip_bwd_plain(
+        diff_dp, Gk, res_b, rb["seed"], b, gtk, gsp), 1)
+    # slot_scatter on this bounce's winner cotangents (tricot on the lanes
+    # with a triangle, zero elsewhere) and slots, as the step hands it
+    # them; index_add_ of the clamped slots computes the same function
+    slot_b = res_b.i[1]
+    cot_b = torch.where(slot_b >= 0, tck, 0.0).t()
+    g_k = slot_scatter(torch.zeros_like(diff_dp.table), slot_b, cot_b)
+    g_p = slot_scatter_plain(torch.zeros_like(diff_dp.table), slot_b, cot_b)
+    clamped = slot_b.clamp(min=0).long()
+    g_lib = torch.zeros_like(diff_dp.table).index_add_(0, clamped, cot_b)
+    torch.cuda.synchronize()
+    scale = float(g_p.abs().max())
+    for label, other in (("its twin", g_p), ("index_add_", g_lib)):
+        assert torch.allclose(g_k, other, rtol=1e-5, atol=1e-5 * scale), \
+            f"slot_scatter bounce {b} vs {label}"
+    g_buf = torch.zeros_like(diff_dp.table)
+    ss_ms = events_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot_b, cot_b), 10)
+    ss_dev = kernel_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot_b, cot_b), 10)
+    ss_plain = events_ms(g_buf.zero_, lambda: slot_scatter_plain(g_buf, slot_b, cot_b), 3)
+    ss_lib = kernel_ms(g_buf.zero_, lambda: g_buf.index_add_(0, clamped, cot_b), 10)
+    # the work
+    hit = code >= 0
+    on_tri = hit & (code % 2 == 1)
+    n_live, n_hit, n_tri = int(live.sum()), int(hit.sum()), int(on_tri.sum())
+    first_hits = n_hit if b == 0 else 0
+    n_rows = int(torch.unique(slot_b[on_tri]).numel())
+    n_miss = n_live - n_hit
+    table_b = plan.tables.table.numel() * 4
+    n_leaf = plan.tables.n_sph * 4 + plan.scene.materials.albedo.shape[0] * 8 + 6
+    # what each lane's case needs, read once and written once (what a
+    # bounce leaves as it is moves nothing).  diff_trip_fwd: every lane's
+    # alive flag; a dead lane's code and slot residuals; a live lane's
+    # hint, the sweep's slot (with a mesh), its segment count read and
+    # written, alive written, its code and slot residuals; a miss reads its
+    # direction, radiance and throughput, writes the radiance and its
+    # direction and throughput residuals; a hit reads the state and its
+    # seed, writes the state and its ten float residuals; a triangle hit
+    # reads the sweep's object and payload; bounce 0's hits write the
+    # normal and depth; the scene table; the count
+    fwd_bytes = (n_l * 4 + (n_l - n_live) * 8 + n_live * (4 + (4 if plan.mesh else 0) + 8 + 4 + 8)
+                 + n_miss * (36 + 12 + 24) + n_hit * (52 + 4 + 52 + 40) + n_tri * 40
+                 + first_hits * 16 + table_b + 4)
+    fwd_flops = n_hit * DIFF_HIT_FLOPS + n_miss * DIFF_MISS_FLOPS
+    # diff_trip_bwd: every lane's code; a miss reads the cotangents of its
+    # direction, radiance and throughput and its direction and throughput
+    # residuals, writes the first and last of those cotangents; a hit reads
+    # its slot and seed, the cotangents of its ray, radiance and throughput
+    # and its ten float residuals, writes those of its ray and throughput;
+    # bounce 0's hits read and write the normal's and depth's; a triangle
+    # hit reads its table row and writes its cotangent; the scene table
+    # read, the leaf table's entries added to
+    bwd_bytes = (n_l * 4 + n_miss * (36 + 24 + 24) + n_hit * (8 + 48 + 40 + 36)
+                 + first_hits * 32 + n_tri * 72 + table_b + n_leaf * 16)
+    bwd_flops = n_hit * DIFF_BWD_HIT_FLOPS + n_miss * DIFF_MISS_FLOPS
+    ss_bytes = n_l * 4 + n_tri * 36 + n_rows * 36
+    out = {}
+    for name, ms, dev_ms_, plain_ms, nbytes, flops, err, lib_ms in (
+            ("diff_trip_fwd", fwd_ms, fwd_dev, fwd_plain, fwd_bytes, fwd_flops, 0.0, None),
+            ("diff_trip_bwd", bwd_ms, bwd_dev, bwd_plain, bwd_bytes, bwd_flops, bwd_err, None),
+            ("slot_scatter", ss_ms, ss_dev, ss_plain, ss_bytes, n_tri * 9,
+             float((g_k - g_p).abs().max()), ss_lib)):
+        bound_ms, bound_by = bound(flops, nbytes)
+        out[name] = dict(ms=ms, device_ms=dev_ms_, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, share_of_bound=bound_ms / dev_ms_, bytes=nbytes,
+                         flops=flops, max_abs_err=err, library_ms=lib_ms)
+    out["work"] = dict(lanes=n_l, live=n_live, hits=n_hit, triangle_hits=n_tri, slot_rows=n_rows,
+                       bwd_rel_gap=bwd_gap, bwd_rel_gaps=bwd_gaps)
+    diff_checks[f"bunny_step_bounce{b}"] = out
+    print(f"bounce {b}{' (the last)' if b == LAST_BOUNCE else ''} of sample 0: {n_l} lanes, "
+          f"{n_live} live, {n_hit} hits, {n_tri} on triangles in {n_rows} slots; diff_trip_fwd "
+          f"equal to its twin (every output), diff_trip_bwd within {bwd_gap:.3g} of its twin's "
+          f"VJP (of each row's or leaf's max; the largest {max(bwd_gaps, key=bwd_gaps.get)}), "
+          f"slot_scatter equal to index_add_ and its twin")
+    for name in ("diff_trip_fwd", "diff_trip_bwd", "slot_scatter"):
+        r = out[name]
+        print(f"  {name} {r['ms']:.4f} ms a call (events), {r['device_ms']:.4f} ms on the device, "
+              f"twin {r['plain_ms']:.3f} ms"
+              + (f", index_add_ {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+              + f"; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.4f} GFLOP; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['share_of_bound']:.1%} of it")
+    del runs, Fk, Ik, Fp, Ip, Gk, Gp, gsk, gsp, gtk, tck, cot_b, rf, rb, res_b, g_buf
+del diff_dp, first_dp
 
 # --- 7 -------------------------------------------------------------------
-phase("7 gradient parity, kernel vs twin: 256^2, 1 spp, 4 bounces")
+phase("7 gradient parity, kernels vs twins: 256^2, 1 spp, 4 bounces; the diff_trip route's "
+      "kernels against the body route on the sweep's twin")
 twin_diff = functools.partial(intersect.intersect_scene_ids_diff,
                               closest_hit=sweep_kernel.treelet_closest_hit_plain)
+reset_counts()
 lk, rk2, gk, *_ = fwd_bwd(256, 1, 4)
+p7_launches = read_counts()
+assert p7_launches["diff_trip_fwd"] > 0 and p7_launches["trip_tail"] == 0, p7_launches
 lp, rp2, gp, *_ = fwd_bwd(256, 1, 4, intersect_fn=twin_diff)
 assert rk2 == rp2, (rk2, rp2)
 assert torch.allclose(lk, lp, rtol=1e-5), (float(lk), float(lp))
@@ -1452,6 +1735,10 @@ a_peak = torch.cuda.max_memory_allocated() - mem0
 assert a_launches["treelet_closest_hit(payload=True)"] > 0 and a_launches["treelet_any_hit"] > 0, \
     a_launches
 assert a_launches["treelet_closest_hit"] == 0 and a_launches["winner_step"] == 0, a_launches
+# emitters: the body route, whose fetch backward is slot_scatter (one a
+# bounce) in place of index_add_; the differentiable trip's kernels idle
+assert a_launches["diff_trip_fwd"] == 0 and a_launches["trip_tail"] == 0, a_launches
+assert 0 < a_launches["slot_scatter"] <= a_launches["treelet_closest_hit(payload=True)"], a_launches
 assert bool(torch.isfinite(a_loss)) and a_rays > NEE_SIZE * NEE_SIZE, (a_loss, a_rays)
 for k, g in a_grads.items():
     assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k}"
@@ -1481,8 +1768,13 @@ with open(os.path.join(OUT, "cornell_area_fwd_bwd_profile.txt"), "w") as fh:
     fh.write(kav.table(sort_by="self_device_time_total", row_limit=60))
 a_busy_ms = sum(e.self_device_time_total for e in kav
                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+a_slot_ms = sum(e.self_device_time_total for e in kav if "slot_scatter_kernel" in e.key) / 1e3
+a_index_add = [e for e in kav if e.key == "aten::index_add_"]
+a_index_add_ms = sum(dev_total(e) for e in a_index_add) / 1e3
 print(f"profiled step: device busy {a_busy_ms:.1f} ms = {a_busy_ms / 1e3 / a_wall:.1%} of the median "
-      f"wall" if a_busy_ms > 0 else "profiled step: the profiler recorded no device time "
+      f"wall; slot_scatter {a_slot_ms:.3f} ms in {a_launches['slot_scatter']} launches; index_add_ "
+      f"{a_index_add_ms:.3f} ms in {sum(e.count for e in a_index_add)} calls (the positions' gather "
+      f"backward)" if a_busy_ms > 0 else "profiled step: the profiler recorded no device time "
       "(not measured)")
 lk, rk3, gk, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam)
 lp, rp3, gp, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam, intersect_fn=twin_diff,
@@ -1793,7 +2085,12 @@ assert len(fit_losses) == FIT_STEPS and all(np.isfinite(fit_losses)), fit_losses
 assert fit_losses[-1] < fit_losses[0], fit_losses
 assert fit_launches["treelet_closest_hit(payload=True)"] > 0, fit_launches
 assert fit_launches["treelet_closest_hit"] == 0 and fit_launches["winner_step"] == 0, fit_launches
-assert fit_launches["trip_tail"] == 0, fit_launches  # differentiable: the body route
+# differentiable: the diff_trip route, a trip_head, payload sweep and
+# diff_trip_fwd a bounce; only the albedos want a gradient, so no
+# slot_scatter
+assert fit_launches["trip_tail"] == 0 and fit_launches["slot_scatter"] == 0, fit_launches
+assert (fit_launches["diff_trip_fwd"] == fit_launches["diff_trip_bwd"]
+        == fit_launches["treelet_closest_hit(payload=True)"] > 0), fit_launches
 for name in ("fuzz", "ior", "emission"):
     assert torch.equal(getattr(fitted.materials, name), getattr(scene.materials, name)), name
 for name in ("positions", "sphere_center", "sphere_radius"):
@@ -1801,7 +2098,7 @@ for name in ("positions", "sphere_center", "sphere_radius"):
 assert not torch.equal(fitted.materials.albedo, fit_start.materials.albedo)
 fit_wall = sorted(fit_walls[1:])[len(fit_walls[1:]) // 2]
 fit_per_step = {k: v / FIT_STEPS for k, v in fit_launches.items()}
-print(f"losses {[round(x, 6) for x in fit_losses]}; launches {fit_launches} "
+print(f"the diff_trip route; losses {[round(x, 6) for x in fit_losses]}; launches {fit_launches} "
       f"({fit_per_step['treelet_closest_hit(payload=True)']:g} payload sweeps a step); peak "
       f"memory {fit_peak / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB resident before it")
 print(f"step walls {', '.join(f'{w:.3f}' for w in fit_walls)} s; median of steps 2-{FIT_STEPS} "
@@ -1968,9 +2265,13 @@ for overlap in (True, False):
         scene, desc.camera, zeros, SIZE, SIZE, DIFF_SPP, max_bounces=DIFF_BOUNCES,
         overlap_grad_psum=overlap))
     assert torch.allclose(loss_s, d_loss, rtol=1e-5), (float(loss_s), float(d_loss))
+    # against one process's gradient by the same route: per bounce the
+    # body route, post hoc the differentiable trip (phase 6 holds the two
+    # routes to each other at 1e-4)
+    want_g = d_grads_body if overlap else d_grads
     gap = {}
     for k in LEAVES:
-        a, b = leaf(grads_s, k), d_grads[k]
+        a, b = leaf(grads_s, k), want_g[k]
         scale = float(b.abs().max())
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale), (placement, k)
         gap[k] = float((a - b).abs().max()) / scale if scale > 0 else 0.0
@@ -2017,7 +2318,12 @@ ranks2 = two_ranks("--band-rank")
 buf2, rays2 = tpupt_torch.render_image(scene, desc.camera, b2, b2, spp=BAND2["spp"],
                                        max_bounces=BAND2["max_bounces"],
                                        rr_start=BAND2["rr_start"])
-l2, _, g2, *_ = fwd_bwd(b2, BAND2["diff_spp"], DIFF_BOUNCES)
+# one process's gradients by each placement's route: per bounce the body
+# route, post hoc the differentiable trip
+l2, _, g2_post, *_ = fwd_bwd(b2, BAND2["diff_spp"], DIFF_BOUNCES)
+l2b, _, g2_over, *_ = fwd_bwd(b2, BAND2["diff_spp"], DIFF_BOUNCES, intersect_fn=BODY_DIFF)
+assert torch.equal(l2, l2b), (float(l2), float(l2b))
+g2_by = {"overlap": g2_over, "posthoc": g2_post}
 two_info = {}
 for r, res in enumerate(ranks2):
     assert int(res["rays"]) == int(rays2), (r, int(res["rays"]), int(rays2))
@@ -2026,7 +2332,7 @@ for r, res in enumerate(ranks2):
     for placement in ("overlap", "posthoc"):
         assert np.isclose(float(res[f"{placement}_loss"]), float(l2), rtol=1e-5), (r, placement)
         for k in LEAVES:
-            b = g2[k].cpu().numpy()
+            b = g2_by[placement][k].cpu().numpy()
             scale = float(np.abs(b).max())
             assert np.allclose(res[f"{placement}.{k}"], b, rtol=1e-5, atol=1e-5 * scale), \
                 (r, placement, k)
@@ -2304,11 +2610,15 @@ for name in harness.CONFIGS:
     assert (info["launches_per_call"]["treelet_closest_hit"] > 0) == meshes, (name, info)
     assert info["launches_per_call"]["treelet_any_hit"] == 0, (name, info)  # no mesh light
     # the trip route on every forward config, cornell's (sphere NEE: the
-    # trip_nee kernel) too; diff (differentiable) takes the body route
+    # trip_nee kernel) too; diff (differentiable, no emitter, no mesh)
+    # takes the differentiable trip
     trip_route = name != "diff"
     assert (info["launches_per_call"]["trip_tail"] > 0) == trip_route, (name, info)
     assert (info["launches_per_call"]["trip_nee"] > 0) == (name == "cornell"), (name, info)
-    print(f"  {name}: the {'trip' if trip_route else 'body'} route", flush=True)
+    assert (info["launches_per_call"]["diff_trip_fwd"] > 0) == (name == "diff"), (name, info)
+    assert (info["launches_per_call"]["diff_trip_bwd"]
+            == info["launches_per_call"]["diff_trip_fwd"]), (name, info)
+    print(f"  {name}: the {'trip' if trip_route else 'diff_trip'} route", flush=True)
     if name not in ("multimesh", "ajax", "ajax_hi"):
         del scn
         continue
@@ -2522,7 +2832,27 @@ report = {
                                    for k, v in harness_info.items()},
         inputs={k: dict(v["trip_nee"], work=v["work"]) for k, v in trip_checks.items()
                 if "trip_nee" in v},
-    )],
+    )] + [dict(
+        # not Pallas in the JAX package: the differentiable trace_sample's
+        # lax.scan over _bounce_body with refine_hit and its transpose
+        # (tpupt/render/integrator.py:499, :804; tpupt/render/intersect.py:450)
+        # and _fetch_tri_rows' backward scatter (intersect.py:436), compiled
+        # by XLA; main path the fwd+bwd step of phase 6 (its first call's
+        # launches); the top-level numbers are bounce 0 of its first sample
+        # (1024^2 lanes, all live)
+        name=name, route="cuda", source="tpupt_torch/accel/csrc/diff_trip_kernels.cu",
+        replaces=replaces, launches=d_launches[name],
+        max_abs_err=max(c[name]["max_abs_err"] for c in diff_checks.values()),
+        **{k: diff_checks["bunny_step_bounce0"][name][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        cornell_area_step_launches=a_launches[name],
+        fit_step_launches=fit_per_step[name],
+        harness_launches_per_call={k: v["launches_per_call"][name]
+                                   for k, v in harness_info.items()},
+        inputs={k: dict(v[name], work=v["work"]) for k, v in diff_checks.items()},
+    ) for name, replaces in (("diff_trip_fwd", "tpupt/render/integrator.py:499"),
+                             ("diff_trip_bwd", "tpupt/render/integrator.py:804"),
+                             ("slot_scatter", "tpupt/render/intersect.py:436"))],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
     "off_path": [dict(
@@ -2543,12 +2873,16 @@ report = {
                     first_call_s=d_first_s, peak_bytes=d_peak, launches=d_launches,
                     profiled_device_busy_ms=d_busy_ms, profiled_sweep_ms=d_sweep_ms,
                     profiled_index_add_ms=d_index_add_ms, grad_parity_gap=grad_gap,
+                    profiled_kernels=d_kernels, routes_in_turns=route_steps,
+                    routes_profiled=route_prof,
                     denoise_step_wall_s=dn_wall, denoise_fwd_bwd_ms=dn_ms),
     "nee_render": nee_fwd,
     "nee_fwd_bwd": dict(scene="cornell_area.json", rays=a_rays, wall_s=a_wall, walls_s=a_walls,
                         mrays_per_s=a_rays / a_wall / 1e6, forward_backward_s=a_split,
                         first_call_s=a_first_s, peak_bytes=a_peak, launches=a_launches,
-                        profiled_device_busy_ms=a_busy_ms, grad_parity_gap=a_gap),
+                        profiled_device_busy_ms=a_busy_ms, grad_parity_gap=a_gap,
+                        profiled_slot_scatter_ms=a_slot_ms,
+                        profiled_index_add_ms=a_index_add_ms),
     "path_tracer": dict(rays=pt_rays, wall_s=pt_wall, launches=pt_launches,
                         chunk_max_abs_gap=chunk_gap, per_sample_walls_s=mode_walls,
                         preview_s=previews, denoise_s=dn_s),

@@ -80,29 +80,48 @@ inline cudaError_t cudaGetLastError() { return 0; }
 """
 
 
-def build(out_dir) -> ctypes.CDLL:
-    """The emulation library of trip_kernels.cu, its entries declared as
-    ``kernels.bind`` declares them."""
-    with open(os.path.join(ROOT, "tpupt_torch", "accel", "csrc", "trip_kernels.cu")) as fh:
-        src = fh.read().replace("#include <cuda_runtime.h>", STUBS)
+def source(name) -> str:
+    """A CUDA source of ``tpupt_torch/accel/csrc`` with the header it
+    includes inlined and the stubs in place of the CUDA runtime."""
+    csrc = os.path.join(ROOT, "tpupt_torch", "accel", "csrc")
+    with open(os.path.join(csrc, name)) as fh:
+        src = fh.read()
+    with open(os.path.join(csrc, "trip_common.cuh")) as fh:
+        common = fh.read().replace("#pragma once", "")
+    return src.replace('#include "trip_common.cuh"', common).replace(
+        "#include <cuda_runtime.h>", STUBS)
 
+
+def launches_as_loops(src, expect):
+    """Each launch ``k<<<grid, block, smem, stream>>>(args)`` as a loop over
+    the blocks and threads, one thread at a time."""
     def loop(m):
         name, grid, block, args = m.groups()
         return (f"for (unsigned b_ = 0; b_ < (unsigned)({grid}); ++b_) "
                 f"for (unsigned t_ = 0; t_ < (unsigned)({block}); ++t_) "
                 f"{{ blockIdx.x = b_; threadIdx.x = t_; {name}({args}); }}")
 
-    src, n = re.subn(r"(\w+(?:<\w+>)?)<<<(.+?), (\w+), 0, stream>>>\(\s*(.*?)\);", loop, src,
+    src, n = re.subn(r"(\w+(?:<\w+>)?)<<<(.+?), (\w+), \w+, stream>>>\(\s*(.*?)\);", loop, src,
                      flags=re.S)
-    assert n >= 4, f"found {n} launches"
+    assert n >= expect, f"found {n} launches"
     # one thread at a time: every thread adds its own vote
-    src = src.replace("(threadIdx.x & 31) == 0 && votes != 0u", "votes != 0u")
-    cpp, lib = os.path.join(out_dir, "trip_emu.cpp"), os.path.join(out_dir, "libtrip_emu.so")
+    return src.replace("(threadIdx.x & 31) == 0 && votes != 0u", "votes != 0u")
+
+
+def compile_emulation(src, out_dir, name) -> ctypes.CDLL:
+    cpp, lib = os.path.join(out_dir, f"{name}.cpp"), os.path.join(out_dir, f"lib{name}.so")
     with open(cpp, "w") as fh:
         fh.write(src)
     subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", cpp,
                     "-o", lib], check=True)
-    lib = ctypes.CDLL(lib)
+    return ctypes.CDLL(lib)
+
+
+def build(out_dir) -> ctypes.CDLL:
+    """The emulation library of trip_kernels.cu, its entries declared as
+    ``kernels.bind`` declares them."""
+    src = source("trip_kernels.cu")
+    lib = compile_emulation(launches_as_loops(src, 4), out_dir, "trip_emu")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tpupt_trip_head.argtypes = [P, P, I, I, P, I, P, P, P, P, P]
     lib.tpupt_trip_nee.argtypes = [P, P, I, I] + [P] * 9 + [I] * 7 + [P] * 5

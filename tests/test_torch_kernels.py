@@ -11,6 +11,9 @@ marked ``cuda`` skip where torch sees no card.
 """
 
 import functools
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -581,3 +584,158 @@ def test_wavefront_kernels_equal_megakernel(request, scene_name, cuda_device):
     assert int(a[3]) == int(b[3]) == sum(seen) and seen[-1] < 64 * 48
     for x, y in zip(a[:3], b[:3]):
         assert torch.equal(x, y)
+
+
+# --- the differentiable trip: diff_trip_fwd, diff_trip_bwd, slot_scatter ----
+
+def _diff_scene(device):
+    """Spheres of the four materials and two icosphere meshes, one metal,
+    one glass (scaled down): every lobe and both refine branches."""
+    v, f = icosphere(2)
+    d = SceneDescription()
+    d.add_material("ground", "lambertian", albedo=(0.8, 0.8, 0.0))
+    d.add_material("blue", "lambertian", albedo=(0.1, 0.2, 0.5))
+    d.add_material("glass", "dielectric", refraction_index=1.5)
+    d.add_material("metal", "metal", albedo=(0.8, 0.6, 0.2), fuzz=0.3)
+    t = lambda off: np.asarray(m3.mat_translate(off), np.float64)  # noqa: E731
+    d.add_sphere(100.0, t([0, -100.5, -1.0]), "ground")
+    d.add_sphere(0.5, t([0, 0, -1.0]), "blue")
+    d.add_sphere(0.5, t([-1, 0, -1.0]), "glass")
+    d.add_sphere(0.5, t([1, 0, -1.0]), "metal")
+    d.add_mesh("ico", v, f)
+    d.add_mesh_object("ico", t([0.3, 0.6, -1.5]), "metal")
+    d.add_mesh_object("ico", t([-0.4, 0.5, -0.6]) @ np.diag([0.3, 0.3, 0.3, 1.0]), "glass")
+    return d.build(device="cpu").to(device), make_camera(vfov=np.pi / 2)
+
+
+def _diff_step(scene, cam, fn=None, rr_start=None):
+    params = extract_params(scene)
+    buf, rays = render_image(with_params(scene, params), cam, 48, 40, spp=2, max_bounces=4,
+                             differentiable=True, intersect_fn=fn, rr_start=rr_start)
+    loss = (buf.color ** 2).sum() + 0.1 * buf.normal.sum() + 0.01 * buf.depth.clamp(max=20).sum()
+    leaves = [params[k] for k in PARAM_LEAVES] + list(params["materials"].values())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return buf, int(rays), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rr_start", [None, 1])
+def test_diff_trip_route_equals_body_route_on_card(cuda_device, rr_start):
+    """The differentiable trip's kernels against the body route on the same
+    hit pass: the forward bit-equal, every gradient at rtol 1e-5 (atomic
+    sums in no fixed order, the backward's in another order than
+    autograd's); the diff kernels launch, trip_tail does not."""
+    from tpupt_torch.render import diff_trip, trip_kernel
+
+    scene, cam = _diff_scene(cuda_device)
+    before = dict(diff_trip.launch_counts(), **trip_kernel.launch_counts())
+    bk, rk, gk = _diff_step(scene, cam, rr_start=rr_start)
+    after = dict(diff_trip.launch_counts(), **trip_kernel.launch_counts())
+    bp, rp, gp = _diff_step(scene, cam, functools.partial(intersect_scene_ids_diff), rr_start)
+    torch.cuda.synchronize()
+    moved = {k: after[k] - before[k] for k in after}
+    assert moved["diff_trip_fwd"] > 0 and moved["diff_trip_bwd"] == moved["diff_trip_fwd"], moved
+    assert moved["slot_scatter"] == moved["diff_trip_bwd"] and moved["trip_tail"] == 0, moved
+    assert rk == rp > 48 * 40 * 2
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(bk, key), getattr(bp, key)), key
+    for a, b in zip(gk, gp):
+        assert bool(torch.isfinite(a).all())
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_diff_trip_kernels_equal_twins(cuda_device, monkeypatch):
+    """diff_trip_fwd and diff_trip_bwd against their twins on every bounce
+    of a render: the forward's state, residuals and count exact; the
+    backward's cotangent rows, per-leaf gradients and the slot table's
+    gradient at rtol 1e-5 with a floor of 1e-5 x the row's, leaf's or
+    column's max."""
+    from tpupt_torch.render import diff_trip, trip_kernel as tk
+
+    scene, cam = _diff_scene(cuda_device)
+    fwd, bwd, seen = diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd, {"fwd": [], "bwd": []}
+
+    def rec_fwd(dp, F, I, buf, sweep, b, res=None):
+        seen["fwd"].append((dp, F.clone(), I.clone(), buf.hint.clone(),
+                            None if sweep is None else tuple(o.clone() for o in sweep), b))
+        return fwd(dp, F, I, buf, sweep, b, res)
+
+    def rec_bwd(dp, G, res, seed, b, gtab, g_slot=None):
+        seen["bwd"].append((dp, G.clone(), res, seed, b))
+        return bwd(dp, G, res, seed, b, gtab, g_slot)
+
+    monkeypatch.setattr(diff_trip, "diff_trip_fwd", rec_fwd)
+    monkeypatch.setattr(diff_trip, "diff_trip_bwd", rec_bwd)
+    _diff_step(scene, cam, rr_start=1)
+    assert len(seen["fwd"]) >= 3 and len(seen["bwd"]) == len(seen["fwd"])
+    for dp, F, I, hint, sweep, b in seen["fwd"]:
+        outs = []
+        for run in (fwd, diff_trip.diff_trip_fwd_plain):
+            Fx, Ix, buf = F.clone(), I.clone(), tk.trip_buffers(dp.trip)
+            buf.hint.copy_(hint)
+            res = diff_trip.residuals(dp.trip.n, cuda_device)
+            res.f.zero_()
+            run(dp, Fx, Ix, buf, sweep, b, res)
+            outs.append((Fx, Ix, res, int(buf.count)))
+        (Fk, Ik, rk, ck), (Fp, Ip, rp, cp) = outs
+        assert torch.equal(Fk, Fp) and torch.equal(Ik, Ip) and ck == cp, b
+        assert torch.equal(rk.i, rp.i), b
+        assert torch.equal(rk.f, rp.f), b
+    for dp, G, res, seed, b in seen["bwd"]:
+        outs = []
+        for run in (bwd, diff_trip.diff_trip_bwd_plain):
+            Gx, gtab = G.clone(), diff_trip.leaf_table_zeros(dp.trip)
+            g_slot = torch.zeros_like(dp.table)
+            run(dp, Gx, res, seed, b, gtab, g_slot)
+            outs.append((Gx, diff_trip.split_leaf_table(dp.trip, gtab), g_slot))
+        (Gk, lk, sk), (Gp, lp, sp) = outs
+        for a, c in [*zip(Gk, Gp), *((lk[k], lp[k]) for k in lp), *zip(sk.t(), sp.t())]:
+            assert torch.allclose(a, c, rtol=1e-5, atol=1e-5 * float(c.abs().max())), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["(N, 9)", "(9, N) transposed"])
+def test_slot_scatter_kernel_equals_index_add(cuda_device, layout):
+    """slot_scatter against index_add_ of the rows with slot >= 0: runs of
+    equal slots in a warp, slot -1 lanes with nonzero cotangents (which
+    add nothing), both layouts; at rtol 1e-6 (atomic order)."""
+    from tpupt_torch.accel.slot_scatter import slot_scatter
+
+    r = np.random.default_rng(5)
+    n, rows = 5000, 300
+    slot = r.integers(0, rows, n)
+    slot[r.random(n) < 0.5] = -1
+    slot[1000:1100] = 7  # whole warps on one row
+    slot = torch.from_numpy(slot).to(cuda_device)
+    cot = torch.from_numpy(r.standard_normal((n, 9)).astype(np.float32)).to(cuda_device)
+    if layout != "(N, 9)":
+        cot = cot.t().contiguous().t()
+    before = slot_scatter.launches
+    got = slot_scatter(torch.zeros((rows, 9), device=cuda_device), slot, cot)
+    keep = slot >= 0
+    want = torch.zeros((rows, 9), device=cuda_device).index_add_(0, slot[keep], cot[keep])
+    torch.cuda.synchronize()
+    assert slot_scatter.launches == before + 1
+    assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+SLOT_PAST_END = """
+import torch
+from tpupt_torch.accel.slot_scatter import slot_scatter
+g = torch.zeros((300, 9), device="cuda")
+slot = torch.tensor([3, -1, 300, 5], device="cuda")
+slot_scatter(g, slot, torch.ones((4, 9), device="cuda"))
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.cuda
+def test_slot_scatter_kernel_fails_on_a_slot_past_the_table(cuda_device):
+    """A slot past the table's end is an error, as index_add_'s: the
+    kernel's assert fails the launch (in a process of its own, since the
+    failure ends its CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", SLOT_PAST_END], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode != 0 and "assert" in (run.stdout + run.stderr), run.stderr[-2000:]

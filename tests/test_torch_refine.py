@@ -35,6 +35,7 @@ from tpupt.scene.bake import rebake_treelets as jax_rebake
 from test_torch_render import GEOM, _rays
 from test_torch_scene import port_scene
 from tpupt_torch.accel.packets import _DIFF_KEYS
+from tpupt_torch.accel.slot_scatter import slot_scatter
 from tpupt_torch.core.types import HitIds, PRIM_TRIANGLE, table_rows
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.render.intersect import (
@@ -96,12 +97,17 @@ def test_slot_tri_table_matches_jax(moved):
 
 def test_fetch_tri_rows_backward_is_the_gather_vjp():
     """Forward returns the payload; backward equals autograd's VJP of the
-    row gather wtable[clamp(slot, 0)], with repeated slots and slot -1."""
+    row gather wtable[clamp(slot, 0)], with repeated slots and slot -1, for
+    the cotangents refine_hit hands it: zero on a lane with slot -1, whose
+    hit is not a triangle.  That backward is ``slot_scatter``, whose twin
+    is the index_add_ of the rows with slot >= 0: a slot -1 lane adds
+    nothing even with a nonzero cotangent."""
     r = np.random.default_rng(3)
     wtable = torch.from_numpy(r.standard_normal((64, 9)).astype(np.float32)).requires_grad_(True)
     slot = torch.from_numpy(np.concatenate([r.integers(0, 64, 200), [-1, -1, 5, 5, 5, 0]]))
     vals = [c.detach() for c in wtable[slot.clamp(min=0)].unbind(1)]
     cot = torch.from_numpy(r.standard_normal((slot.shape[0], 9)).astype(np.float32))
+    cot[slot < 0] = 0.0
 
     out = _FetchTriRows.apply(wtable, slot, *vals)
     assert all(torch.equal(a, b) for a, b in zip(out, vals))
@@ -109,6 +115,24 @@ def test_fetch_tri_rows_backward_is_the_gather_vjp():
     (want,) = torch.autograd.grad(wtable[slot.clamp(min=0)], wtable, grad_outputs=cot)
     assert torch.equal(got, want)
     assert got[5].abs().sum() > 0 and got[0].abs().sum() > 0
+    # slot_scatter's twin: a slot -1 lane's cotangent goes nowhere, in
+    # either layout of the rows
+    cot[slot < 0] = 1.0
+    keep = slot >= 0
+    want = torch.zeros((64, 9)).index_add_(0, slot[keep], cot[keep])
+    for rows in (cot, cot.t().contiguous().t()):
+        assert torch.equal(slot_scatter(torch.zeros((64, 9)), slot, rows), want)
+    (got,) = torch.autograd.grad(_FetchTriRows.apply(wtable, slot, *vals), wtable,
+                                 grad_outputs=list(cot.unbind(1)))
+    assert torch.equal(got, want)
+
+
+def test_slot_scatter_raises_on_a_slot_past_the_table():
+    """A slot past the table's end is an error, not "no triangle": the
+    twin's index_add_ raises on it (the kernel asserts, test_torch_kernels)."""
+    slot = torch.tensor([3, -1, 64, 5])
+    with pytest.raises((IndexError, RuntimeError)):
+        slot_scatter(torch.zeros((64, 9)), slot, torch.ones((4, 9)))
 
 
 @pytest.mark.parametrize("shape", [(5,), (5, 3)])

@@ -51,7 +51,7 @@ from tpupt_torch.dist.sharding import (
     render_image_sharded,
     render_loss_and_grads_sharded,
 )
-from tpupt_torch.render import integrator, trip_kernel
+from tpupt_torch.render import diff_trip, integrator, trip_kernel
 from tpupt_torch.render.integrator import render_image
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.procedural import icosphere
@@ -159,16 +159,21 @@ def _rank_cases(rank):
         trip_kernel.trip_head = head
     out["lanes"] = (sorted(set(lanes)), buf.color.shape[0])
 
-    # bounces, counted as differentiable hit passes: of this rank's band
+    # bounces, counted as differentiable hit passes (the body route's ids
+    # pass, the differentiable trip's diff_trip_fwd): of this rank's band
     # of sphere_scene alone, and of each sharded step
     bounces = [0]
-    traced_diff = integrator.intersect_scene_ids_diff
+    traced_diff, traced_fwd = integrator.intersect_scene_ids_diff, diff_trip.diff_trip_fwd
 
     def counting_diff(*args, **kw):
         bounces[0] += 1
         return traced_diff(*args, **kw)
 
-    integrator.intersect_scene_ids_diff = counting_diff
+    def counting_fwd(*args, **kw):
+        bounces[0] += 1
+        return traced_fwd(*args, **kw)
+
+    integrator.intersect_scene_ids_diff, diff_trip.diff_trip_fwd = counting_diff, counting_fwd
     try:
         rows = H // WORLD
         render_image(sphere, cam, W, H, 1, max_bounces=4, differentiable=True, row0=rank * rows,
@@ -186,7 +191,7 @@ def _rank_cases(rank):
                                       max_bounces=4, overlap_grad_psum=False)
         out["bounces_sphere_scene_posthoc"] = bounces[0]
     finally:
-        integrator.intersect_scene_ids_diff = traced_diff
+        integrator.intersect_scene_ids_diff, diff_trip.diff_trip_fwd = traced_diff, traced_fwd
     band = torch.tensor(ZERO_SIGNS) * (rank + 1)
     out["gather"] = _gather_bands(band[:, None], rank, WORLD, dist.group.WORLD).numpy()
 

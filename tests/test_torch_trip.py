@@ -273,7 +273,7 @@ ROUTES = {  # (scene, differentiable, intersect_fn, any_hit) -> route
     "nee, treelet_any_hit named": ("nee", False, None, sweep_kernel.treelet_any_hit, "trip"),
     "nee, any_hit passed": ("nee", False, None, sweep_kernel.treelet_any_hit_plain, "body"),
     "nee, differentiable": ("nee", True, None, None, "body"),
-    "differentiable": ("spheres", True, None, None, "body"),
+    "differentiable": ("spheres", True, None, None, "diff_trip"),
     "bvh oracle": ("spheres", False, intersect_scene_ids_bvh, None, "body"),
     "brute force": ("spheres", False, intersect_scene_ids_brute, None, "body"),
     "sweep twin passed in": ("spheres", False, TWIN, None, "body"),
@@ -302,10 +302,11 @@ def test_render_route(spheres, head_calls, case):
     assert render_route(scene, diff, fn, any_hit) == want
     kw = dict(max_bounces=2, intersect_fn=fn, differentiable=diff, any_hit=any_hit)
     buf, rays = render_image(scene, cam, 8, 8, spp=1, **kw)
-    assert (len(head_calls) > 0) == (want == "trip") and int(rays) > 0
+    # the differentiable trip runs trip_head too (tests/test_torch_diff_trip.py)
+    assert (len(head_calls) > 0) == (want != "body") and int(rays) > 0
     del head_calls[:]
     trace_sample(scene, cam, 8, 8, 0, **kw)
-    assert (len(head_calls) > 0) == (want == "trip")
+    assert (len(head_calls) > 0) == (want != "body")
 
 
 def test_route_body_takes_no_trip_kernel(spheres, head_calls):

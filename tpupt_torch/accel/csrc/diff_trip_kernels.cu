@@ -1,0 +1,793 @@
+// The differentiable trip of the path tracer, forward and backward, as
+// hand-written CUDA kernels for Hopper (sm_90a), with a plain C interface
+// bound by ctypes (tpupt_torch/render/diff_trip.py and
+// tpupt_torch/accel/slot_scatter.py, which also hold their torch twins).
+//
+// What they replace.  In the JAX package a differentiable sample is XLA
+// code, not Pallas: `trace_sample(differentiable=True)`
+// (tpupt/render/integrator.py:804) scans `_bounce_body` (:499) over the
+// bounces with `refine_hit` (tpupt/render/intersect.py:450), which reads the
+// winner triangle's rows through the `_fetch_tri_rows` custom VJP
+// (:415-447); XLA fuses the scan and its transpose into a few device kernels
+// and keeps each bounce's inputs as the scan's residuals.  The port's body
+// route runs each of those operations as its own eager torch kernel and
+// its autograd node (~55,000 kernels a 1024^2, 4 spp, 8-bounce step).  Here
+// a bounce of a scene without emitters is
+//
+//   trip_head (trip_kernels.cu): the sphere pass and the sweep's rows;
+//   treelet_closest_hit(payload=True) (treelet_kernels.cu), with a mesh;
+//   diff_trip_fwd  one thread a lane: refine_hit's closed form (the sphere
+//                  branch through the object's matrices, the triangle
+//                  branch on the payload's p0, e1, e2), then the body
+//                  without emitters (background on a miss, the first
+//                  bounce's normal and depth, all four BSDF lobes,
+//                  emission, roulette), the lane state updated in place;
+//                  it keeps the bounce's residuals (the ray, t_min and
+//                  throughput it found, its hit's object and slot: 48 bytes
+//                  a lane that hits, 32 one that misses, which keeps only
+//                  its direction and throughput) and counts the lanes left
+//                  with one atomic a warp;
+//
+// and the backward pass, one bounce at a time in reverse:
+//
+//   diff_trip_bwd  one thread a lane: the bounce recomputed from its
+//                  residuals by the forward's own code (so every discrete
+//                  choice, the winner's branch, front, the lobe, roulette,
+//                  comes out as it did), then its vector-Jacobian product
+//                  by hand: the cotangent of the bounce's outputs (ray,
+//                  radiance, throughput, normal, depth) in, that of its
+//                  inputs out, in place; the leaf cotangents (each sphere's
+//                  centre and radius, each material's albedo, fuzz, index
+//                  and emission, the background) summed in double, in the
+//                  warp per row, then in the block in shared memory, then
+//                  one global atomic a block per entry, into a table in the
+//                  layout of the trip kernels' scene table; the winner
+//                  triangle's (9, N) cotangent;
+//   slot_scatter   (K6: `_fetch_tri_rows`'s backward, intersect.py:436) the
+//                  (N, 9) winner cotangent added into the (K*L, 9) slot
+//                  table's gradient: lanes without a triangle (slot -1,
+//                  whose cotangent is zero) add nothing, and the lanes of a
+//                  warp with the same slot sum theirs before one of them
+//                  makes the row's 9 atomics; a slot past the table fails
+//                  the launch, as index_add_'s does.  It also serves the body
+//                  route's `_FetchTriRows`.
+//
+// The backward reproduces autograd's conventions, not the calculus:
+// torch.clamp passes the gradient at equality and not past it,
+// torch.maximum splits a tie in halves, torch.where gives the unselected
+// branch an exact zero (so a lane only takes its branch's derivatives),
+// torch.sign has none, and the floored determinant of the triangle
+// branch none where it was floored.
+//
+// What bounds them on this card: bytes.  A lane moves only what its case
+// needs: diff_trip_fwd ~100 bytes a lane that misses (its direction,
+// radiance and throughput read, the radiance written, the residuals the
+// backward reads) and ~180 a lane that hits (the state read and written,
+// the residuals), plus the sweep's winner and payload on a triangle and
+// the normal and depth on bounce 0; diff_trip_bwd ~90 a miss lane and ~140
+// a hit lane, plus the winner's table row and cotangent on a triangle and
+// the normal's and depth's cotangents on bounce 0.  That is for a few
+// hundred float operations a lane (~800 a hit backward), well under the
+// 67 TFLOP/s FP32 rate's ~20 operations a byte.  So, as in the
+// trip kernels, one thread a lane over SoA rows keeps every access
+// coalesced, a dead lane reads 4 bytes and writes 8, and the small tables
+// are read by every thread at one address.  The leaf sums are the one
+// place lanes meet: a bounce's million lanes add into a few dozen words
+// (bg has 6, bunny's materials 24), so a direct atomic a lane would
+// serialise; the warp and block sums leave ~4,000 atomics a word a bounce.
+//
+// Numerics: as in trip_kernels.cu (trip_common.cuh): every forward
+// operation runs in the torch body's order, rounded once, so the forward is
+// bit-equal to the body route.  The backward's per-lane arithmetic runs in
+// another order than autograd's; its leaf sums over a million lanes run in
+// double, so the order of their atomics, which is not fixed, costs no
+// float32 bits (a float32 chain of ~4,000 block atomics a word would).
+
+#include <cassert>
+
+#include "trip_common.cuh"
+
+namespace {
+
+// a bounce's float residuals (diff_trip.RES_F_KEYS): the lane's ray, t_min
+// and throughput as the bounce found them
+enum { R_ROX, R_ROY, R_ROZ, R_RDX, R_RDY, R_RDZ, R_TMIN, R_COLX, R_COLY, R_COLZ };
+// its int residuals (diff_trip.RES_I_KEYS): the hit's code and the sweep's
+// slot (-1 without a triangle)
+enum { R_CODE, R_SLOT };
+// a code: object * 2 + 1 on a triangle, object * 2 on a sphere, or
+constexpr int kMiss = -1;  // alive, nothing hit
+constexpr int kDead = -2;  // not alive at the bounce
+// the cotangent rows (diff_trip.G_KEYS)
+enum {
+  G_ROX, G_ROY, G_ROZ, G_RDX, G_RDY, G_RDZ, G_RADX, G_RADY, G_RADZ,
+  G_COLX, G_COLY, G_COLZ, G_NX, G_NY, G_NZ, G_DEPTH,
+};
+// leaf cotangents a lane adds: a sphere's centre and radius; a material's
+// albedo, fuzz, ior and emission; the background's bg_down and bg_up
+constexpr int kSphLeaf = 4, kMatLeaf = 8, kBgLeaf = 6;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The row of sphere object `obj` in the scene table
+__device__ __forceinline__ int sphere_row(const float* tab, int n_sph, int obj) {
+  for (int k = 0; k < n_sph; ++k) {
+    if ((int)tab[k * kSphereRow + 28] == obj) return k;
+  }
+  return 0;  // not reached: the sphere pass names only rows of this table
+}
+
+// intersect.refine_hit on one lane, and what its backward reads again
+struct Refine {
+  bool tri, front;
+  float t;
+  V3 P, N;
+  // the triangle branch
+  V3 p0, e1, e2, h, w, q, cr;
+  float f, num;
+  bool floored;
+  // the sphere branch: its table row
+  int row;
+  V3 oo, odr, od, oc, pobj, rel;
+  float a, b, cc, a4, disc, sq, den, t1, t2, t_obj, l2, rr;
+  bool use1;
+};
+
+// the triangle branch on the winner's world p0, e1, e2
+__device__ __forceinline__ void refine_triangle(V3 ro, V3 rd, V3 p0, V3 e1, V3 e2, Refine& r) {
+  r.tri = true;
+  r.p0 = p0;
+  r.e1 = e1;
+  r.e2 = e2;
+  r.h = cross(rd, e2);
+  const float det = dot(e1, r.h);
+  r.floored = fabsf(det) < 1e-12f;
+  r.f = 1.0f / (r.floored ? 1e-12f : det);  // torch: reciprocal(where(...)) * 1.0
+  r.w = ro - p0;
+  r.q = cross(r.w, e1);
+  r.num = dot(e2, r.q);
+  r.t = r.f * r.num;
+  r.P = ro + rd * r.t;
+  r.cr = cross(e1, e2);
+  const V3 outward = normalize(r.cr);
+  r.front = dot(rd, outward) < 0.0f;
+  r.N = sel(r.front, outward, -outward);
+}
+
+// the sphere branch on sphere row `row`: the object-space quadratic with
+// its discriminant floored at 1e-12, t1 where it lies past t_min, the world
+// point and t, the normal through the inverse transpose
+__device__ __forceinline__ void refine_sphere(const float* tab, int row, V3 ro, V3 rd, float t_min,
+                                              Refine& r) {
+  const float* s = tab + row * kSphereRow;
+  const float* inv = s;
+  const float* m = s + 12;
+  const V3 c = v3(s[24], s[25], s[26]);
+  const float rad = s[27];
+  r.tri = false;
+  r.row = row;
+  r.oo = xform_point(inv, ro);
+  r.odr = xform_vector(inv, rd);
+  r.od = normalize(r.odr);
+  r.oc = r.oo - c;
+  r.a = dot(r.od, r.od);
+  r.b = 2.0f * dot(r.od, r.oc);
+  r.cc = dot(r.oc, r.oc) - rad * rad;
+  r.a4 = 4.0f * r.a;
+  r.disc = r.b * r.b - r.a4 * r.cc;
+  r.sq = sqrtf(clamp_min(r.disc, 1e-12f));
+  r.den = 2.0f * r.a;
+  r.t1 = (-r.b - r.sq) / r.den;
+  r.t2 = (-r.b + r.sq) / r.den;
+  r.use1 = r.t1 >= t_min;
+  r.t_obj = r.use1 ? r.t1 : r.t2;
+  r.pobj = r.oo + r.od * r.t_obj;
+  r.P = xform_point(m, r.pobj);
+  r.rel = r.P - ro;
+  r.l2 = dot(r.rel, r.rel);
+  r.t = sqrtf(clamp_min(r.l2, 1e-30f));
+  r.rr = 1.0f / rad;
+  const V3 outward = (r.pobj - c) * r.rr;
+  r.front = dot(r.od, outward) < 0.0f;
+  r.N = xform_normal(inv, sel(r.front, outward, -outward));
+}
+
+struct Scene {
+  const float* tab;
+  int n_sph, mat_off, obj_off, bg_off;
+};
+
+// One live lane's bounce on its hit (code >= 0): the refined hit, shading,
+// the throughput and, from rr_start on, roulette
+struct Bounce {
+  Refine r;
+  Scatter sc;
+  int mat;
+  V3 c;  // the throughput after shading, before roulette
+  bool alive2, rr_on, survive;
+  float m1, p_raw, inv_p;
+};
+
+__device__ __forceinline__ void bounce_forward(const Scene& sc, int bounce, int rr_start, V3 ro,
+                                               V3 rd, float t_min, V3 col, uint32_t seed, int code,
+                                               V3 p0, V3 e1, V3 e2, Bounce& B) {
+  const int obj = code >> 1;
+  if (code & 1) {
+    refine_triangle(ro, rd, p0, e1, e2, B.r);
+  } else {
+    refine_sphere(sc.tab, sphere_row(sc.tab, sc.n_sph, obj), ro, rd, t_min, B.r);
+  }
+  HitRec h;
+  h.mask = true;
+  h.kind = B.r.tri ? kPrimTriangle : kPrimSphere;
+  h.obj = obj;
+  h.mat = B.mat = (int)sc.tab[sc.obj_off + obj];
+  h.front = B.r.front;
+  h.t = B.r.t;
+  h.point = B.r.P;
+  h.normal = B.r.N;
+  B.sc = shade(sc.tab, sc.mat_off, h, rd, t_min, seed, bounce);
+  B.c = col * B.sc.mult;
+  B.alive2 = !B.sc.is_emis;
+  B.rr_on = B.alive2 && bounce >= rr_start;
+  B.survive = true;
+  if (B.rr_on) {  // materials.russian_roulette
+    const float u = uniform(seed, bounce_counter(bounce, 3));
+    B.m1 = maximum(B.c.x, B.c.y);
+    B.p_raw = maximum(B.m1, B.c.z);
+    const float p = clamp2(B.p_raw, 0.05f, 0.95f);
+    B.survive = u < p;
+    B.inv_p = 1.0f / p;
+  }
+}
+
+// --- diff_trip_fwd -----------------------------------------------------------
+
+struct FwdArgs {
+  float* F;
+  int* I;
+  int n;
+  const int* hint;  // trip_head's: sphere object * 2 + front, -1 for none
+  // the payload sweep's slot, object and p0x..e2z over the packed lanes;
+  // null without a mesh
+  const int* s_slot;
+  const float* s_obj;
+  const float* pay[9];
+  Scene scene;
+  int bounce, rr_start;
+  float* res_f;  // (10, n), null: keep no residuals
+  int* res_i;  // (2, n)
+  int* count;
+};
+
+__global__ void __launch_bounds__(kThreads) diff_trip_fwd_kernel(const FwdArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int n = a.n;
+  bool left = false;  // alive after the bounce: counted per warp
+  if (i < n) {
+    float* F = a.F;
+    int* I = a.I;
+#define FR(row) F[(size_t)(row) * n + i]
+#define IR(row) I[(size_t)(row) * n + i]
+    if (IR(I_ALIVE) == 0) {
+      if (a.res_i != nullptr) {
+        a.res_i[(size_t)R_CODE * n + i] = kDead;
+        a.res_i[(size_t)R_SLOT * n + i] = -1;
+      }
+    } else {
+      const V3 rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
+      const V3 rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
+      const V3 col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
+      // intersect_scene_ids_diff's ids: the sphere pass's winner, replaced
+      // by the sweep's where a triangle won
+      const int slot = a.s_slot != nullptr ? a.s_slot[i] : -1;
+      const int hint = a.hint[i];
+      int code = kMiss;
+      if (slot >= 0) {
+        code = max((int)a.s_obj[i], 0) * 2 + 1;
+      } else if (hint >= 0) {
+        code = (hint >> 1) * 2;
+      }
+      if (a.res_i != nullptr) {
+        a.res_i[(size_t)R_CODE * n + i] = code;
+        a.res_i[(size_t)R_SLOT * n + i] = slot;
+      }
+      if (code == kMiss) {
+        // the path leaves with the background; its ray and throughput stay
+        // as they are, and the backward reads only rd and col again
+        const V3 out = rad + col * background(a.scene.tab + a.scene.bg_off, rd);
+        FR(F_RADX) = out.x;
+        FR(F_RADY) = out.y;
+        FR(F_RADZ) = out.z;
+        if (a.res_f != nullptr) {
+          const float vals[6] = {rd.x, rd.y, rd.z, col.x, col.y, col.z};
+          for (int r = 0; r < 3; ++r) {
+            a.res_f[(size_t)(R_RDX + r) * n + i] = vals[r];
+            a.res_f[(size_t)(R_COLX + r) * n + i] = vals[3 + r];
+          }
+        }
+      } else {
+        const V3 ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
+        const float t_min = FR(F_TMIN);
+        if (a.res_f != nullptr) {
+          const float vals[10] = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, t_min, col.x, col.y, col.z};
+          for (int r = 0; r < 10; ++r) a.res_f[(size_t)r * n + i] = vals[r];
+        }
+        V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
+        if (slot >= 0) {
+          p0 = v3(a.pay[0][i], a.pay[1][i], a.pay[2][i]);
+          e1 = v3(a.pay[3][i], a.pay[4][i], a.pay[5][i]);
+          e2 = v3(a.pay[6][i], a.pay[7][i], a.pay[8][i]);
+        }
+        Bounce B;
+        bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, (uint32_t)IR(I_SEED),
+                       code, p0, e1, e2, B);
+        // the emission term without emitters to sample
+        const V3 out = rad + col * B.sc.emitted;
+        if (a.bounce == 0) {
+          FR(F_NX) = B.r.N.x;
+          FR(F_NY) = B.r.N.y;
+          FR(F_NZ) = B.r.N.z;
+          FR(F_DEPTH) = B.r.t;
+        }
+        V3 c = B.c;
+        left = B.alive2;
+        if (B.rr_on) {
+          if (B.survive) c = c * B.inv_p;
+          left = B.survive;
+        }
+        FR(F_ROX) = B.sc.ro.x;
+        FR(F_ROY) = B.sc.ro.y;
+        FR(F_ROZ) = B.sc.ro.z;
+        FR(F_RDX) = B.sc.rd.x;
+        FR(F_RDY) = B.sc.rd.y;
+        FR(F_RDZ) = B.sc.rd.z;
+        FR(F_TMIN) = B.sc.t_min;
+        FR(F_RADX) = out.x;
+        FR(F_RADY) = out.y;
+        FR(F_RADZ) = out.z;
+        FR(F_COLX) = c.x;
+        FR(F_COLY) = c.y;
+        FR(F_COLZ) = c.z;
+      }
+      IR(I_ALIVE) = left ? 1 : 0;
+      IR(I_SEGS) = IR(I_SEGS) + 1;
+    }
+#undef FR
+#undef IR
+  }
+  // every thread of the warp reaches the vote, out-of-range ones with 0
+  const unsigned votes = __ballot_sync(kFull, left);
+  if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(a.count, __popc(votes));
+}
+
+// --- diff_trip_bwd -----------------------------------------------------------
+
+// Backward of Vec3.normalize, v * rsqrt(clamp(|v|^2, min=1e-12)), for the
+// cotangent g of its result
+__device__ __forceinline__ V3 normalize_bwd(V3 v, V3 g) {
+  const float l2 = dot(v, v);
+  const float inv = rsqrtf(clamp_min(l2, 1e-12f));
+  // rsqrt's derivative -0.5 x^-1.5, through the clamp where it passes
+  const float g_l2 = l2 >= 1e-12f ? -0.5f * dot(g, v) * (inv * inv * inv) : 0.0f;
+  return g * inv + v * (2.0f * g_l2);
+}
+
+// Backward of vec.reflect, d - n * (2 (d . n)): adds into gd and gn
+__device__ __forceinline__ void reflect_bwd(V3 d, V3 n, V3 g, V3& gd, V3& gn) {
+  const float two_q = 2.0f * dot(d, n);
+  const float g_q = 2.0f * -dot(g, n);
+  gd = gd + g + n * g_q;
+  gn = gn - g * two_q + d * g_q;
+}
+
+// Backward of vec.refract for a unit incident uv: adds into guv and gn,
+// returns the cotangent of eta
+__device__ __forceinline__ float refract_bwd(V3 uv, V3 n, float eta, V3 g, V3& guv, V3& gn) {
+  const float dv = dot(-uv, n);
+  const float ct = clamp_max(dv, 1.0f);
+  const V3 w = uv + n * ct;
+  const V3 perp = w * eta;
+  const float k = 1.0f - dot(perp, perp);
+  const float sq = sqrtf(clamp_min(k, 1e-12f));
+  // perp + n * (-sq)
+  gn = gn + g * (-sq);
+  const float g_sq = -dot(g, n);
+  const float g_k = k >= 1e-12f ? g_sq / (2.0f * sq) : 0.0f;
+  const V3 g_perp = g + perp * (2.0f * -g_k);
+  const V3 g_w = g_perp * eta;
+  const float g_eta = dot(g_perp, w);
+  const float g_ct = dot(g_w, n);
+  const float g_dv = dv <= 1.0f ? g_ct : 0.0f;
+  guv = guv + g_w - n * g_dv;
+  gn = gn + g_w * ct + (-uv) * g_dv;
+  return g_eta;
+}
+
+// torch.maximum(a, b)'s backward: a tie splits g in halves
+__device__ __forceinline__ void maximum_bwd(float a, float b, float g, float& ga, float& gb) {
+  if (a == b) {
+    ga = gb = g * 0.5f;
+  } else {
+    ga = a < b ? 0.0f : g;
+    gb = a > b ? 0.0f : g;
+  }
+}
+
+struct BwdArgs {
+  float* G;  // (16, n), the cotangent of the bounce's outputs in, its inputs' out
+  int n;
+  const float* res_f;
+  const int* res_i;
+  const int* seed;  // the lane state's seed row
+  const float* tri;  // the slot table (K*L, 9), null without a mesh
+  Scene scene;
+  int n_mat, bounce, rr_start;
+  double* gtab;  // the leaf cotangents, in the scene table's layout
+  float* tricot;  // (9, n) the winner triangle's cotangent, null: not wanted
+};
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The block's leaf table in shared memory (a compact layout: kSphLeaf a
+// sphere row, then kMatLeaf a material, then the background), zeroed
+__device__ __forceinline__ void block_table_zero(double* sm, int n_ent) {
+  for (int e = threadIdx.x; e < n_ent; e += kThreads) sm[e] = 0.0;
+  __syncthreads();
+}
+
+// Each lane's W cotangents of leaf row `key` (-1: none): the warp's lanes of
+// one key sum theirs and one of them adds the sums into the block's table
+// at base + key * W; the loop runs once for each key the warp holds
+template <int W>
+__device__ __forceinline__ void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
+  unsigned todo = __ballot_sync(kFull, key >= 0);
+  while (todo != 0u) {
+    const int leader = __ffs(todo) - 1;
+    const int k = __shfl_sync(kFull, key, leader);
+    const bool mine = key == k;
+    for (int j = 0; j < W; ++j) {
+      const double s = warp_sum(mine ? (double)v[j] : 0.0);
+      if ((int)(threadIdx.x & 31) == leader) atomicAdd(&sm[base + k * W + j], s);
+    }
+    todo &= ~__ballot_sync(kFull, mine);
+  }
+}
+
+// entry e of the compact table at its place in the scene table's layout
+__device__ __forceinline__ int leaf_index(const BwdArgs& a, int e) {
+  const int sph = a.scene.n_sph * kSphLeaf, mat = a.n_mat * kMatLeaf;
+  if (e < sph) return (e / kSphLeaf) * kSphereRow + 24 + e % kSphLeaf;
+  if (e < sph + mat) return a.scene.mat_off + ((e - sph) / kMatLeaf) * kMatRow + 1 + (e - sph) % kMatLeaf;
+  return a.scene.bg_off + (e - sph - mat);
+}
+
+// The block's sums into the global table: one atomic an entry that holds one
+__device__ __forceinline__ void block_table_flush(double* sm, const BwdArgs& a, int n_ent) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_ent; e += kThreads) {
+    const double v = sm[e];
+    if (v != 0.0) atomicAdd(a.gtab + leaf_index(a, e), v);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) diff_trip_bwd_kernel(const BwdArgs a) {
+  extern __shared__ double sm[];
+  const int n_ent = a.scene.n_sph * kSphLeaf + a.n_mat * kMatLeaf + kBgLeaf;
+  block_table_zero(sm, n_ent);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int n = a.n;
+  int skey = -1, mkey = -1, bkey = -1;  // the lane's sphere row, material, background (0)
+  float sv[kSphLeaf] = {}, mv[kMatLeaf] = {}, bv[kBgLeaf] = {};
+  const int code = i < n ? a.res_i[(size_t)R_CODE * n + i] : kDead;
+  if (code != kDead) {
+    float* G = a.G;
+#define GR(row) G[(size_t)(row) * n + i]
+#define RF(row) a.res_f[(size_t)(row) * n + i]
+    // the cotangents of what the bounce leaves as it is (the radiance's
+    // always, a miss's ray, the normal and depth after bounce 0) pass to
+    // its inputs unchanged, so they are not written; every load the lane's
+    // case needs is issued here, before any is used, so that a warp waits
+    // on memory once (the hit's triangle row, which needs its slot, twice)
+    V3 grd = v3(GR(G_RDX), GR(G_RDY), GR(G_RDZ));
+    const V3 grad = v3(GR(G_RADX), GR(G_RADY), GR(G_RADZ));
+    V3 gcol = v3(GR(G_COLX), GR(G_COLY), GR(G_COLZ));
+    const V3 rd = v3(RF(R_RDX), RF(R_RDY), RF(R_RDZ));
+    const V3 col = v3(RF(R_COLX), RF(R_COLY), RF(R_COLZ));
+    V3 gro = v3(0.0f, 0.0f, 0.0f), ro = gro, gn = gro;
+    float t_min = 0.0f, gdep = 0.0f;
+    int slot = -1;
+    uint32_t seed = 0u;
+    if (code != kMiss) {
+      gro = v3(GR(G_ROX), GR(G_ROY), GR(G_ROZ));
+      ro = v3(RF(R_ROX), RF(R_ROY), RF(R_ROZ));
+      t_min = RF(R_TMIN);
+      slot = a.res_i[(size_t)R_SLOT * n + i];
+      seed = (uint32_t)a.seed[i];
+      if (a.bounce == 0) {
+        gn = v3(GR(G_NX), GR(G_NY), GR(G_NZ));
+        gdep = GR(G_DEPTH);
+      }
+    }
+    if (code == kMiss) {
+      // radiance += col * background(rd): bg = down + t (up - down),
+      // t = 0.5 (normalize(rd).y + 1)
+      const float* bg = a.scene.tab + a.scene.bg_off;
+      const float t = 0.5f * (normalize(rd).y + 1.0f);
+      const V3 g_bg = grad * col;
+      gcol = gcol + grad * background(bg, rd);
+      float g_t = 0.0f;
+      for (int k = 0; k < 3; ++k) {
+        const float gk = k == 0 ? g_bg.x : (k == 1 ? g_bg.y : g_bg.z);
+        bv[k] = gk - gk * t;
+        bv[3 + k] = gk * t;
+        g_t += gk * (bg[3 + k] - bg[k]);
+      }
+      grd = grd + normalize_bwd(rd, v3(0.0f, 0.5f * g_t, 0.0f));
+      bkey = 0;
+    } else {
+      V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
+      if (code & 1) {
+        const float* row = a.tri + (size_t)slot * 9;
+        p0 = load3(row);
+        e1 = load3(row + 3);
+        e2 = load3(row + 6);
+      }
+      Bounce B;
+      bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, seed, code, p0, e1, e2, B);
+      const Scatter& sc = B.sc;
+      const Refine& r = B.r;
+      // roulette: a survivor's throughput c * (1 / p), p the clamped
+      // largest channel of c
+      V3 gc = gcol;
+      if (B.rr_on && B.survive) {
+        gc = gcol * B.inv_p;
+        const float g_p = -dot(gcol, B.c) * (B.inv_p * B.inv_p);
+        const float g_raw = (B.p_raw >= 0.05f && B.p_raw <= 0.95f) ? g_p : 0.0f;
+        float g_m1, gx, gy, gz;
+        maximum_bwd(B.m1, B.c.z, g_raw, g_m1, gz);
+        maximum_bwd(B.c.x, B.c.y, g_m1, gx, gy);
+        gc = gc + v3(gx, gy, gz);
+      }
+      // throughput out = col * mult, radiance += col * emitted
+      const V3 gcol_in = gc * sc.mult + grad * sc.emitted;
+      const V3 g_mult = gc * col;
+      mkey = B.mat;
+      if (sc.mtype == kDiffuse || (sc.mtype == kMetal && sc.metal_ok)) {
+        mv[0] = g_mult.x;
+        mv[1] = g_mult.y;
+        mv[2] = g_mult.z;
+      }
+      if (sc.is_emis) {
+        const V3 g_em = grad * col;
+        mv[5] = g_em.x;
+        mv[6] = g_em.y;
+        mv[7] = g_em.z;
+      }
+      V3 gP = gro, gN = v3(0.0f, 0.0f, 0.0f), gro_in = gN, grd_in = gN;
+      float gt = 0.0f;
+      // the scatter's origin: the point, or point - n * k_off off a dielectric
+      if (sc.mtype != kDielectric) gN = -(gro * sc.k_off);
+      // its direction, by the material's lobe (an emitter's is the
+      // dielectric lobe's, as materials.shade selects it)
+      if (sc.mtype == kDiffuse) {
+        gN = gN + (sc.degenerate ? grd : normalize_bwd(sc.d_sum, grd));
+      } else if (sc.mtype == kMetal) {
+        reflect_bwd(rd, r.N, grd, grd_in, gN);
+        mv[3] = dot(grd, sc.s);
+      } else {
+        V3 g_unit = v3(0.0f, 0.0f, 0.0f);
+        if (sc.reflect_diel) {
+          reflect_bwd(sc.unit_d, r.N, grd, g_unit, gN);
+        } else {
+          const float g_eta = refract_bwd(sc.unit_d, r.N, sc.ratio, grd, g_unit, gN);
+          // the ratio is 1 / ior entering, ior leaving
+          mv[4] = r.front ? -g_eta * (sc.ratio * sc.ratio) : g_eta;
+        }
+        grd_in = grd_in + normalize_bwd(rd, g_unit);
+      }
+      if (a.bounce == 0) {  // the first hit's normal and depth, not its inputs'
+        gN = gN + gn;
+        gt = gdep;
+      }
+      if (r.tri) {
+        const V3 g_cr = normalize_bwd(r.cr, r.front ? gN : -gN);
+        V3 ge1 = cross(r.e2, g_cr), ge2 = cross(g_cr, r.e1);
+        // P = ro + rd t, t = f * (e2 . q), q = (ro - p0) x e1, f = 1 / det
+        gro_in = gro_in + gP;
+        grd_in = grd_in + gP * r.t;
+        const float g_t = gt + dot(gP, rd);
+        const float g_f = g_t * r.num, g_num = g_t * r.f;
+        ge2 = ge2 + r.q * g_num;
+        const V3 g_q = r.e2 * g_num;
+        const V3 g_w = cross(r.e1, g_q);
+        ge1 = ge1 + cross(g_q, r.w);
+        gro_in = gro_in + g_w;
+        // det = e1 . (rd x e2), floored at 1e-12 in magnitude
+        const float g_det = r.floored ? 0.0f : -g_f * (r.f * r.f);
+        ge1 = ge1 + r.h * g_det;
+        const V3 g_h = r.e1 * g_det;
+        grd_in = grd_in + cross(r.e2, g_h);
+        ge2 = ge2 + cross(g_h, rd);
+        if (a.tricot != nullptr) {
+          const float vals[9] = {-g_w.x, -g_w.y, -g_w.z, ge1.x, ge1.y, ge1.z, ge2.x, ge2.y, ge2.z};
+          for (int k = 0; k < 9; ++k) a.tricot[(size_t)k * n + i] = vals[k];
+        }
+      } else {
+        const float* s = a.scene.tab + r.row * kSphereRow;
+        const float* inv = s;
+        const float* m = s + 12;
+        const V3 c = v3(s[24], s[25], s[26]);
+        const float rad = s[27];
+        // t = |P - ro|, clamped at 1e-30 under the root
+        const float g_l2 = r.l2 >= 1e-30f ? gt / (2.0f * r.t) : 0.0f;
+        const V3 g_rel = r.rel * (2.0f * g_l2);
+        gP = gP + g_rel;
+        gro_in = gro_in - g_rel;
+        // N = inv^T (+-outward), outward = (pobj - c) / rad
+        const V3 g_nsel = xform_vector(inv, gN);
+        const V3 g_out = r.front ? g_nsel : -g_nsel;
+        V3 g_pobj = g_out * r.rr;
+        V3 g_c = -g_pobj;
+        float g_r = -dot(g_out, r.pobj - c) * (r.rr * r.rr);
+        // P = m pobj
+        g_pobj = g_pobj + xform_normal(m, gP);
+        // pobj = oo + od t_obj, t_obj = t1 or t2 = (-b -+ sq) / (2 a)
+        V3 g_oo = g_pobj;
+        V3 g_od = g_pobj * r.t_obj;
+        const float g_tobj = dot(g_pobj, r.od);
+        const float g_t1 = r.use1 ? g_tobj : 0.0f, g_t2 = r.use1 ? 0.0f : g_tobj;
+        const float g_n1 = g_t1 / r.den, g_n2 = g_t2 / r.den;
+        float g_a = 2.0f * (-g_t1 * (r.t1 / r.den) - g_t2 * (r.t2 / r.den));
+        float g_b = -g_n1 - g_n2;
+        const float g_sq = g_n2 - g_n1;
+        // sq = sqrt(clamp(disc, 1e-12)), disc = b b - (4 a) cc
+        const float g_disc = r.disc >= 1e-12f ? g_sq / (2.0f * r.sq) : 0.0f;
+        g_b = g_b + 2.0f * r.b * g_disc;
+        g_a = g_a + 4.0f * (-g_disc * r.cc);
+        const float g_cc = -g_disc * r.a4;
+        // cc = oc . oc - rad^2, b = 2 (od . oc), a = od . od
+        V3 g_oc = r.oc * (2.0f * g_cc);
+        g_r = g_r - 2.0f * rad * g_cc;
+        const float g_dot = 2.0f * g_b;
+        g_od = g_od + r.oc * g_dot + r.od * (2.0f * g_a);
+        g_oc = g_oc + r.od * g_dot;
+        // oc = oo - c, oo = inv ro, od = normalize(inv rd)
+        g_oo = g_oo + g_oc;
+        g_c = g_c - g_oc;
+        gro_in = gro_in + xform_normal(inv, g_oo);
+        grd_in = grd_in + xform_normal(inv, normalize_bwd(r.odr, g_od));
+        skey = r.row;
+        sv[0] = g_c.x;
+        sv[1] = g_c.y;
+        sv[2] = g_c.z;
+        sv[3] = g_r;
+      }
+      // G is written only after the last read of the scene table, which
+      // it could alias
+      GR(G_ROX) = gro_in.x;
+      GR(G_ROY) = gro_in.y;
+      GR(G_ROZ) = gro_in.z;
+      if (a.bounce == 0) {
+        GR(G_NX) = 0.0f;
+        GR(G_NY) = 0.0f;
+        GR(G_NZ) = 0.0f;
+        GR(G_DEPTH) = 0.0f;
+      }
+      grd = grd_in;
+      gcol = gcol_in;
+    }
+    GR(G_RDX) = grd.x;
+    GR(G_RDY) = grd.y;
+    GR(G_RDZ) = grd.z;
+    GR(G_COLX) = gcol.x;
+    GR(G_COLY) = gcol.y;
+    GR(G_COLZ) = gcol.z;
+#undef GR
+#undef RF
+  }
+  // every thread of the block reaches the sums, out-of-range and dead ones
+  // with no key
+  warp_add_keyed(sm, 0, skey, sv);
+  warp_add_keyed(sm, a.scene.n_sph * kSphLeaf, mkey, mv);
+  warp_add_keyed(sm, a.scene.n_sph * kSphLeaf + a.n_mat * kMatLeaf, bkey, bv);
+  block_table_flush(sm, a, n_ent);
+}
+
+// --- slot_scatter ------------------------------------------------------------
+
+// Add each lane's row v into row s of g (s < 0: nothing): the lanes of a
+// warp with the same s sum theirs, in lane order, and the first of them
+// makes the row's 9 atomics
+__device__ __forceinline__ void scatter_row(float* g, int s, const float (&v)[9]) {
+  const unsigned peers = __match_any_sync(kFull, s);
+  if (s < 0) return;
+  const bool leader = (int)(threadIdx.x & 31) == __ffs(peers) - 1;
+  for (int k = 0; k < 9; ++k) {
+    float acc = 0.0f;
+    for (unsigned m = peers; m != 0u; m &= m - 1u) acc += __shfl_sync(peers, v[k], __ffs(m) - 1);
+    if (leader) atomicAdd(&g[(size_t)s * 9 + k], acc);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) slot_scatter_kernel(float* g, int rows, const int* slot,
+                                                                const float* cot, int n,
+                                                                int lane_stride, int comp_stride) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int s = i < n ? slot[i] : -1;
+  // a slot past the table is a fault upstream (index_add_ asserts on it
+  // too): the launch fails, and the next call on the stream raises
+  assert(s < rows && "slot_scatter: slot past the end of the table");
+  float v[9];
+  for (int k = 0; k < 9; ++k) {
+    v[k] = s >= 0 ? cot[(size_t)i * lane_stride + (size_t)k * comp_stride] : 0.0f;
+  }
+  scatter_row(g, s, v);
+}
+
+}  // namespace
+
+extern "C" {
+
+// diff_trip_fwd over n lanes: the lane state (F, I) updated in place, the
+// residuals into res_f/res_i (null: none kept), the lanes left into *count
+// (zeroed first).  The sweep's slot, object and payload may be null (no
+// mesh).
+int tpupt_diff_trip_fwd(float* F, int* I, int n, const int* hint, const int* s_slot,
+                        const float* s_obj, const float* p0x, const float* p0y, const float* p0z,
+                        const float* e1x, const float* e1y, const float* e1z, const float* e2x,
+                        const float* e2y, const float* e2z, const float* tab, int n_sph,
+                        int mat_off, int obj_off, int bg_off, int bounce, int rr_start,
+                        float* res_f, int* res_i, int* count, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  FwdArgs a{F,   I,       n,       hint,    s_slot, s_obj,
+            {p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z},
+            {tab, n_sph, mat_off, obj_off, bg_off},
+            bounce, rr_start, res_f, res_i, count};
+  if (n > 0) {
+    diff_trip_fwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Shared memory diff_trip_bwd's blocks take for a scene's leaf table
+size_t tpupt_diff_trip_bwd_smem_bytes(int n_sph, int n_mat) {
+  return sizeof(double) * (size_t)(n_sph * kSphLeaf + n_mat * kMatLeaf + kBgLeaf);
+}
+
+// diff_trip_bwd over n lanes: G updated in place, the leaf cotangents added
+// into gtab (double, the scene table's layout), the winner triangle's into
+// tricot (null: not wanted).  tri may be null (no mesh).
+int tpupt_diff_trip_bwd(float* G, int n, const float* res_f, const int* res_i, const int* seed,
+                        const float* tri, const float* tab, int n_sph, int n_mat, int mat_off,
+                        int obj_off, int bg_off, int bounce, int rr_start, double* gtab,
+                        float* tricot, cudaStream_t stream) {
+  BwdArgs a{G,    n,   res_f, res_i, seed, tri, {tab, n_sph, mat_off, obj_off, bg_off},
+            n_mat, bounce, rr_start, gtab, tricot};
+  const size_t smem = tpupt_diff_trip_bwd_smem_bytes(n_sph, n_mat);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(diff_trip_bwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n > 0) {
+    diff_trip_bwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// slot_scatter: g (rows, 9) += the rows of cot (lane i's component k at
+// cot[i * lane_stride + k * comp_stride]) at slot[i], for slot[i] >= 0.
+int tpupt_slot_scatter(float* g, int rows, const int* slot, const float* cot, int n,
+                       int lane_stride, int comp_stride, cudaStream_t stream) {
+  if (n > 0) {
+    slot_scatter_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        g, rows, slot, cot, n, lane_stride, comp_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -47,8 +47,9 @@ def _nvcc() -> str:
 
 
 def library_path(extra_flags=()) -> str:
-    """Where the library for the current sources and flags lives."""
-    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    """Where the library for the current sources (``*.cu`` and the headers
+    they include, ``*.cuh``) and flags lives."""
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
     for s in srcs:
         with open(s, "rb") as fh:
@@ -119,6 +120,14 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_trip_tail.restype = _I
     lib.tpupt_trip_tail.argtypes = ([_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P] + [_I] * 11
                                     + [_P] * 6)
+    lib.tpupt_diff_trip_fwd.restype = _I
+    lib.tpupt_diff_trip_fwd.argtypes = [_P, _P, _I] + [_P] * 13 + [_I] * 6 + [_P] * 4
+    lib.tpupt_diff_trip_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.tpupt_diff_trip_bwd_smem_bytes.argtypes = [_I, _I]
+    lib.tpupt_diff_trip_bwd.restype = _I
+    lib.tpupt_diff_trip_bwd.argtypes = [_P, _I] + [_P] * 5 + [_I] * 7 + [_P] * 3
+    lib.tpupt_slot_scatter.restype = _I
+    lib.tpupt_slot_scatter.argtypes = [_P, _I, _P, _P, _I, _I, _I, _P]
     lib.tpupt_rcp_check.restype = _I
     lib.tpupt_rcp_check.argtypes = [_P, _P]
     lib.tpupt_cuda_error_string.restype = ctypes.c_char_p

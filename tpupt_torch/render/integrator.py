@@ -11,15 +11,19 @@ path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
 is that of the per-sample loop, with the same ray count.  The port runs
 this as one flat loop with a host check for live lanes on every trip.
 
-Two routes run the loops (``render_route``).  A forward render through
+Three routes run the loops (``render_route``).  A forward render through
 the default hit pass (and, with emitters, the default shadow sweep) takes
 the trip route: per trip the CUDA kernels ``trip_kernel.trip_head``, with
 emitters ``trip_nee`` and the any-hit sweep, and ``trip_tail`` around the
 closest-hit sweep, over the lane state in SoA device buffers, and one
-4-byte read of the lanes left (``_run_trips``).  Everything else takes the
-body route, ``_bounce_body`` in torch, which the trip route equals bit for
-bit (any other ``intersect_fn``, even ``functools.partial(
-intersect_scene_ids)``, or ``any_hit`` takes it).
+4-byte read of the lanes left (``_run_trips``).  A differentiable sample
+of a scene without emitters through the default ids pass takes the
+differentiable trip (``diff_trip.DiffTrip``: per bounce ``trip_head``, the
+payload sweep and ``diff_trip_fwd``; backward ``diff_trip_bwd`` and
+``slot_scatter`` per bounce).  Everything else takes the body route,
+``_bounce_body`` in torch (under autograd when differentiable), which both
+trips equal bit for bit (any other ``intersect_fn``, even
+``functools.partial(intersect_scene_ids)``, or ``any_hit`` takes it).
 
 Per sample (``chain_samples=False``, and every differentiable render): a
 loop over samples, each one ``trace_sample`` folded in by ``accumulate``.
@@ -28,8 +32,9 @@ pass.  A differentiable one (``differentiable=True``) rebakes the treelet
 table from the scene's positions, builds the slot table once, and each
 bounce finds its hit ids with the sweep's payload form outside autograd
 and recomputes the hit in closed form (``intersect.refine_hit``) under
-it.  The whole graph is kept for the backward pass; the sweep never runs
-in it.
+it.  The body route keeps the whole graph for the backward pass; the
+differentiable trip keeps each bounce's inputs and hit and recomputes the
+bounce backward.  The sweep never runs backward.
 
 Scenes with emitters run next-event estimation (NEE) with multiple
 importance sampling (MIS): every diffuse hit also samples each sphere
@@ -57,6 +62,7 @@ which traces them by its own closest hit (``_closest_hit_shadows``).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -94,6 +100,7 @@ from tpupt_torch.render.materials import (
     shade,
 )
 from tpupt_torch.sampling.rng import bounce_counter, jitter_counters, pixel_seed, uniform
+from tpupt_torch.render import diff_trip
 from tpupt_torch.render import trip_kernel as tk
 from tpupt_torch.scene.bake import rebake_treelets
 from tpupt_torch.utils import debug
@@ -586,18 +593,40 @@ def _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
 
 
 def render_route(scene: SceneArrays, differentiable: bool = False, intersect_fn=None,
-                 any_hit=None) -> str:
-    """Which loop a render takes, chosen from the call before any launch:
-    "trip" (``trip_kernel``: the sphere pass and the sweep's rows in
-    ``trip_head``; with emitters the body up to NEE's shadow rays in
+                 any_hit=None, grad_psum_axis=None, grad_psum_overlap: bool = True,
+                 camera: Camera | None = None) -> str:
+    """Which loop a render takes, chosen from the call before any launch.
+
+    Forward: "trip" (``trip_kernel``: the sphere pass and the sweep's rows
+    in ``trip_head``; with emitters the body up to NEE's shadow rays in
     ``trip_nee`` and the any-hit sweep on their rows; NEE's sum, roulette
-    and, chained, the fold and restart in ``trip_tail``) for a forward
-    render through the default hit pass and, with emitters, the default
-    shadow sweep; "body" (``_bounce_body``) for differentiable renders,
-    for any other ``intersect_fn`` (the reference intersectors, which
-    share no code with what they check, or a sweep passed in) and, on a
-    scene with emitters, for any other ``any_hit``."""
-    if differentiable or intersect_fn not in (None, intersect_scene_ids):
+    and, chained, the fold and restart in ``trip_tail``) through the
+    default hit pass and, with emitters, the default shadow sweep.
+
+    Differentiable: "diff_trip" (``diff_trip.DiffTrip``: per bounce
+    ``trip_head``, the payload sweep and ``diff_trip_fwd``; backward
+    ``diff_trip_bwd`` and ``slot_scatter``) for a scene without emitters
+    through the default ids pass (``intersect_scene_ids_diff`` with its
+    own sweep), unsharded or sharded post hoc (``grad_psum_overlap=False``:
+    the scene's cotangents reduced once, before the loop), where the
+    gradient reaches only ``diff.extract_params``' leaves (the objects'
+    matrices and ``camera``'s need none); any rows.
+
+    "body" (``_bounce_body``) for everything else: any other
+    ``intersect_fn`` (the reference intersectors, which share no code
+    with what they check, or a sweep passed in), on a scene with emitters
+    any other ``any_hit`` and every differentiable render (NEE's terms
+    have no backward kernel yet), and per-bounce sharded gradients.  The
+    choice is made here, not by a failure: a kernel that does not build
+    or launch raises."""
+    if differentiable:
+        local = not any(t is not None and t.requires_grad for t in (
+            scene.obj_m, scene.obj_inv_m, None if camera is None else camera.camera_matrix))
+        if (intersect_fn in (None, intersect_scene_ids_diff) and not scene.has_nee and local
+                and (grad_psum_axis is None or not grad_psum_overlap)):
+            return "diff_trip"
+        return "body"
+    if intersect_fn not in (None, intersect_scene_ids):
         return "body"
     if scene.has_nee and any_hit not in (None, sweep_kernel.treelet_any_hit):
         return "body"
@@ -739,9 +768,13 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     lives longest, so that the ranks' collectives pair up.
 
     A forward sample through the default hit pass and shadow sweep runs
-    the trip kernels (``render_route``)."""
+    the trip kernels, a differentiable one of a scene without emitters
+    through the default ids pass the differentiable trip's
+    (``render_route``)."""
     rows = height if rows is None else rows
-    if render_route(scene, differentiable, intersect_fn, any_hit) == "trip":
+    route = render_route(scene, differentiable, intersect_fn, any_hit, grad_psum_axis,
+                         grad_psum_overlap, camera)
+    if route == "trip":
         return _trace_sample_trips(scene, camera, width, height, iteration, max_bounces,
                                    rr_start, row0, rows)
     tri_table = None
@@ -749,6 +782,9 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
     per_bounce = sharded and grad_psum_overlap
     if sharded and not grad_psum_overlap:
         scene = psum_in_backward(scene, grad_psum_axis)
+    if route == "diff_trip":
+        return _trace_sample_diff_trips(scene, camera, width, height, iteration, max_bounces,
+                                        rr_start, row0, rows)
     if differentiable and any(k == OBJ_MESH for k in scene.s_obj_kind):
         scene = rebake_treelets(scene)
         tri_table = slot_tri_table(scene)
@@ -783,6 +819,36 @@ def _trace_sample_trips(scene, camera, width, height, iteration, max_bounces, rr
     final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
     return (final.to_array(), state["normal"].to_array(), state["depth"].clone(),
             out["chain"]["segs"].sum())
+
+
+def _diff_bounce(scene, state, seed, bounce, ids, tri_vals, rr_start):
+    """One bounce of a differentiable sample without emitters on its ids:
+    ``refine_hit``, ``_bounce_shade`` and ``_bounce_finish`` (the body
+    route's ``_bounce_body`` after its ids pass), which the differentiable
+    trip's twins are assembled from."""
+    hit = refine_hit(scene, state["ro"], state["rd"], state["t_min"], ids, tri_vals)
+    out, _ = _bounce_shade(scene, seed, state, bounce, ids, hit)
+    return _bounce_finish(out, seed, bounce, rr_start)
+
+
+def _trace_sample_diff_trips(scene, camera, width, height, iteration, max_bounces, rr_start,
+                             row0, rows):
+    """The differentiable ``trace_sample`` of a scene without emitters
+    through ``diff_trip.DiffTrip``: the treelet table rebaked from the
+    positions (the sweep traces it; no gradient goes through it) and the
+    slot table built once, differentiable in the positions."""
+    table = None
+    if any(k == OBJ_MESH for k in scene.s_obj_kind):
+        with torch.no_grad():
+            scene = rebake_treelets(scene)
+        table = slot_tri_table(scene)
+    plan = _trip_plan(scene, camera, width, height, spp=1, max_bounces=max_bounces,
+                      rr_start=rr_start, iteration=int(iteration), chained=False, row0=row0,
+                      rows=rows)
+    dp = diff_trip.DiffPlan(plan, None if table is None else table.detach(),
+                            functools.partial(_trip_start, plan),
+                            functools.partial(_diff_bounce, rr_start=rr_start))
+    return diff_trip.trace(dp, table)
 
 
 def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
@@ -845,7 +911,9 @@ def render_image(
     ``grad_psum_overlap`` are ``trace_sample``'s.
 
     ``render_route`` picks the loop: the trip kernels for a forward render
-    through the default hit pass and shadow sweep, else ``_bounce_body``."""
+    through the default hit pass and shadow sweep, the differentiable trip
+    for a differentiable render of a scene without emitters through the
+    default ids pass, else ``_bounce_body``."""
     if device is not None:
         scene = scene.to(device)
     camera = camera.to(scene.device)

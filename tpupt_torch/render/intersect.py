@@ -16,7 +16,7 @@ The differentiable renderer splits a hit in two:
      scene parameters and the ray, so gradients reach vertex positions,
      sphere centres and radii.  The triangle's rows enter through
      ``_FetchTriRows``, whose backward scatters their cotangent into the
-     slot-ordered table ``slot_tri_table`` (one ``index_add_``).
+     slot-ordered table ``slot_tri_table`` (``accel.slot_scatter``).
 
 ``intersect_scene_ids_bvh`` is the reference ids pass: the per-ray BVH
 walk of ``accel/traverse.py``, whose hits ``refine_hit`` recomputes from
@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel.packets import _DIFF_KEYS, intersect_treelets, intersect_treelets_anyhit
+from tpupt_torch.accel.slot_scatter import slot_scatter
 from tpupt_torch.accel.traverse import traverse_mesh
 from tpupt_torch.core import vec
 from tpupt_torch.core.types import (
@@ -305,8 +306,10 @@ class _FetchTriRows(torch.autograd.Function):
     Forward: (wtable (K*L, 9), slot (N,), *vals) -> vals, the 9 (N,)
     components the sweep already copied out of the rebaked table, so there
     is no forward gather.  Backward: the VJP of the row gather
-    ``wtable[clamp(slot, 0)]``, one ``index_add_`` of the stacked (N, 9)
-    cotangent; ``slot`` and ``vals`` get none."""
+    ``wtable[clamp(slot, 0)]`` on the lanes with a triangle (a lane with
+    slot -1 has a zero cotangent: ``refine_hit`` selects its other
+    branch), ``accel.slot_scatter`` of the stacked (N, 9) cotangent;
+    ``slot`` and ``vals`` get none."""
 
     @staticmethod
     def forward(ctx, wtable, slot, *vals):
@@ -319,7 +322,7 @@ class _FetchTriRows(torch.autograd.Function):
         (slot,) = ctx.saved_tensors
         cot = torch.stack(cots, dim=1)
         g = cot.new_zeros((ctx.rows, cot.shape[1]))
-        g.index_add_(0, slot.clamp(min=0).long(), cot)
+        slot_scatter(g, slot, cot)
         return (g, None) + (None,) * len(cots)
 
 

@@ -220,6 +220,14 @@ class TripPlan:
         return self.spp * self.max_bounces if self.chained else self.max_bounces
 
     @functools.cached_property
+    def sphere_rows(self) -> list:
+        """(object, sphere primitive) of each sphere row of ``tables``, in
+        the scene's object order."""
+        sc = self.scene
+        return [(o, p) for o, (k, p) in enumerate(zip(sc.s_obj_kind, sc.s_obj_prim))
+                if k == OBJ_SPHERE]
+
+    @functools.cached_property
     def tables(self) -> Tables:
         """The kernels' constants, built once per render on the scene's
         device.  ``table`` is float32: per sphere object in the scene's
@@ -233,8 +241,7 @@ class TripPlan:
         matrix's rows 0-2."""
         sc = self.scene
         dev = sc.device
-        sph = [(o, p) for o, (k, p) in enumerate(zip(sc.s_obj_kind, sc.s_obj_prim))
-               if k == OBJ_SPHERE]
+        sph = self.sphere_rows
         parts = [torch.cat([sc.obj_inv_m[o, :3].reshape(12), sc.obj_m[o, :3].reshape(12),
                             sc.sphere_center[p], sc.sphere_radius[p].reshape(1),
                             torch.tensor([float(o)], device=dev)]) for o, p in sph]
