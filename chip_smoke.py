@@ -6,10 +6,11 @@ held to their twins on trips of that render and the render to the
 ``_bounce_body`` route's, in turns), then takes the gradient of a
 full-size differentiable render with respect to every scene parameter
 through the differentiable trip (trip_head, the payload sweep and
-diff_trip_fwd a bounce; diff_trip_bwd and slot_scatter a bounce
-backward), in turns with the ``_bounce_body`` route (the forward
-bit-equal, the gradients within 1e-4), the three kernels held to their
-twins on bounces 0, 2 and the last of a sample, holds the gradient against
+diff_trip_fwd a bounce; one diff_trip_bwd a bounce backward, the slot
+table's scatter inside it), in turns with the ``_bounce_body`` route (the
+forward bit-equal, the gradients within 1e-4), diff_trip_fwd,
+diff_trip_bwd and slot_scatter (the body route's fetch backward) held to
+their twins on bounces 0, 2 and the last of a sample, holds the gradient against
 the body route on the sweep's twin at 256^2 and runs the denoiser's
 backward pass.  Then next-event
 estimation: the any-hit shadow kernels against their twin on sparse,
@@ -54,8 +55,9 @@ it fails before printing any result.  Its standard output ends with:
   * the card's name and power limit, as nvidia-smi reports them,
   * one JSON line {"kernels": [...], "off_path": [...], ...}: per kernel
     its launches on its main path (the forward render; the fwd+bwd step
-    for the payload form and the differentiable trip's three kernels; the
-    cornell_area render for the any-hit kernel and trip_nee), and the trip
+    for the payload form and the differentiable trip's two kernels; the
+    cornell_area render for the any-hit kernel and trip_nee; the
+    cornell_area fwd+bwd step, the body route, for slot_scatter), and the trip
     kernels' (the forward render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
@@ -1028,12 +1030,13 @@ d_launches = read_counts()
 d_peak = torch.cuda.max_memory_allocated() - mem0
 assert d_launches["treelet_closest_hit"] == 0 and d_launches["winner_step"] == 0, d_launches
 # the main path is the differentiable trip: a bounce is trip_head, the
-# payload sweep and diff_trip_fwd, its backward diff_trip_bwd and, the
-# positions wanting a gradient, slot_scatter; no trip_tail
+# payload sweep and diff_trip_fwd, its backward one diff_trip_bwd, which
+# scatters the winner rows into the slot table's gradient itself (no
+# slot_scatter); no trip_tail
 assert (d_launches["diff_trip_fwd"] == d_launches["trip_head"]
         == d_launches["treelet_closest_hit(payload=True)"] > 0), d_launches
-assert (d_launches["diff_trip_bwd"] == d_launches["slot_scatter"]
-        == d_launches["diff_trip_fwd"]), d_launches
+assert d_launches["diff_trip_bwd"] == d_launches["diff_trip_fwd"], d_launches
+assert d_launches["slot_scatter"] == 0, d_launches
 assert d_launches["trip_tail"] == d_launches["trip_nee"] == 0, d_launches
 assert d_rays > n, d_rays
 assert bool(torch.isfinite(d_loss)), d_loss
@@ -1062,6 +1065,7 @@ del loss2, grads2
 # the two routes in turns (diff_trip, body, body, diff_trip), one process:
 # the forward bit-equal (loss, image, normal, depth, segments), every
 # gradient within BASELINE's 1e-4 (rtol, and 1e-4 x the leaf's max |grad|)
+# and no further from the first step's than 1e-5 x the leaf's max |grad|
 route_steps, d_grads_body = {"diff_trip": [], "body": []}, None
 for route in ("diff_trip", "body", "body", "diff_trip"):
     torch.cuda.synchronize()
@@ -1082,6 +1086,7 @@ for route in ("diff_trip", "body", "body", "diff_trip"):
         scale = float(d_grads[k].abs().max())
         assert torch.allclose(g_r[k], d_grads[k], rtol=1e-4, atol=1e-4 * scale), (route, k)
         gap[k] = float((g_r[k] - d_grads[k]).abs().max()) / scale if scale > 0 else 0.0
+        assert gap[k] <= 1e-5, (route, k, gap[k])
     route_steps[route].append(dict(wall_s=w_r, forward_s=f_s, backward_s=b_s, peak_bytes=peak_r,
                                    grad_gap=max(gap.values()), launches=c_r))
     if route == "body" and d_grads_body is None:
@@ -1134,8 +1139,9 @@ for route in ("diff_trip", "body"):
               f"{pr['diff_trip_fwd_ms']:.2f}, diff_trip_bwd {pr['diff_trip_bwd_ms']:.2f}, "
               f"slot_scatter {pr['slot_scatter_ms']:.2f} ms; index_add_ {pr['index_add_ms']:.1f} "
               f"ms in {pr['index_add_calls']} calls (not the fetch's, which is slot_scatter on "
-              f"both routes: the positions' gather backward in world_slot_tris, 3 a sample, and "
-              f"on the diff_trip route the sphere leaves' sum per primitive, 1 a sample)")
+              f"the body route and inside diff_trip_bwd on the diff_trip route: the positions' "
+              f"gather backward in world_slot_tris, 3 a sample, and on the diff_trip route the "
+              f"sphere leaves' sum per primitive, 1 a sample)")
     else:
         print("  profiled: the profiler recorded no device time (not measured)")
 d_busy_ms, d_kernels = route_prof["diff_trip"]["busy_ms"], route_prof["diff_trip"]["kernels"]
@@ -1147,9 +1153,10 @@ del d_buf
 # the three kernels against their twins on bounces 0, 2 and the last of
 # the first sample of one more step: diff_trip_fwd every output exact (the
 # residuals it writes); diff_trip_bwd's cotangent rows, leaf gradients and
-# slot table gradient within rtol 1e-5 (floor 1e-5 x the row's, leaf's or
-# column's max) of the twin's VJP; slot_scatter on that bounce's winner
-# cotangents against index_add_ (the body route's old call) and its twin.
+# slot table gradient (its fused scatter's) within rtol 1e-5 (floor 1e-5 x
+# the row's, leaf's or column's max) of the twin's VJP; slot_scatter on the
+# winner rows of that bounce's twin VJP (what the twin's _FetchTriRows
+# hands it) against index_add_ (the body route's old call) and its twin.
 # Times on the device (``kernel_ms``), by events over the kernel's
 # wrapper, the twins'; work by what each lane's case needs (each input
 # read once, each output written once), float operations estimated from the source
@@ -1157,6 +1164,40 @@ del d_buf
 # roulette) and its backward (the forward again and the hand VJP)
 DIFF_HIT_FLOPS, DIFF_BWD_HIT_FLOPS, DIFF_MISS_FLOPS = 340, 800, 60
 rec_fwd, rec_bwd, first_dp = {}, {}, []
+
+
+def check_slot_scatter(label, rows, slot, cot):
+    """slot_scatter on one (slot, cot) that a fetch backward hands it
+    (slots as int32, as the kernel reads them; cot (N, 9), zero where the
+    slot is -1) into a (rows, 9) table: against its twin and index_add_ of
+    the clamped slots (the same function) at rtol 1e-5, floor 1e-5 x the
+    max; timed (events, on the device), and its work: every lane's slot, a
+    triangle lane's row, each row it adds into once."""
+    slot = slot.to(torch.int32)
+    g_k = slot_scatter(torch.zeros((rows, 9), device=DEV), slot, cot)
+    g_p = slot_scatter_plain(torch.zeros((rows, 9), device=DEV), slot, cot)
+    clamped = slot.clamp(min=0).long()
+    g_lib = torch.zeros((rows, 9), device=DEV).index_add_(0, clamped, cot)
+    torch.cuda.synchronize()
+    scale = float(g_p.abs().max())
+    for name, other in (("its twin", g_p), ("index_add_", g_lib)):
+        assert torch.allclose(g_k, other, rtol=1e-5, atol=1e-5 * scale), \
+            f"slot_scatter on {label} vs {name}"
+    g_buf = torch.zeros((rows, 9), device=DEV)
+    ms = events_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot, cot), 10)
+    dev = kernel_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot, cot), 10)
+    plain = events_ms(g_buf.zero_, lambda: slot_scatter_plain(g_buf, slot, cot), 3)
+    lib = kernel_ms(g_buf.zero_, lambda: g_buf.index_add_(0, clamped, cot), 10)
+    on = slot >= 0
+    n_l, n_tri = slot.numel(), int(on.sum())
+    n_rows = int(torch.unique(slot[on]).numel())
+    nbytes = n_l * 4 + n_tri * 36 + n_rows * 36
+    bound_ms, bound_by = bound(n_tri * 9, nbytes)
+    return dict(ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / dev, bytes=nbytes, flops=n_tri * 9,
+                max_abs_err=float((g_k - g_p).abs().max()), library_ms=lib,
+                work=dict(lanes=n_l, triangle_hits=n_tri, slot_rows=n_rows))
+
 fwd_w, bwd_w = diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd
 
 
@@ -1224,14 +1265,24 @@ for b in (0, 2, LAST_BOUNCE):
     fwd_plain = events_ms(restore_fwd, lambda: diff_trip.diff_trip_fwd_plain(
         diff_dp, Fk, Ik, bp_, rf["sweep"], b, rp), 1)
     # diff_trip_bwd and its twin's VJP on the step's own cotangent, the
-    # slot table's gradient included (the kernel's winner cotangents
-    # through slot_scatter, the twin's through _FetchTriRows)
-    runs = []
+    # slot table's gradient included (the kernel's by its fused scatter,
+    # the twin's through _FetchTriRows, whose (slot, rows) are kept)
+    runs, twin_rows, fetch_scatter = [], [], intersect.slot_scatter
+
+    def recording_scatter(g, slot, cot):
+        twin_rows.append((slot.clone(), cot.clone()))
+        return fetch_scatter(g, slot, cot)
+
     for fn in (bwd_w, diff_trip.diff_trip_bwd_plain):
         Gx, gtab = rb["G"].clone(), diff_trip.leaf_table_zeros(plan)
         g_slot = torch.zeros_like(diff_dp.table)
-        fn(diff_dp, Gx, res_b, rb["seed"], b, gtab, g_slot)
+        intersect.slot_scatter = fetch_scatter if fn is bwd_w else recording_scatter
+        try:
+            fn(diff_dp, Gx, res_b, rb["seed"], b, gtab, g_slot)
+        finally:
+            intersect.slot_scatter = fetch_scatter
         runs.append((Gx, diff_trip.split_leaf_table(plan, gtab), g_slot))
+    assert len(twin_rows) == 1, len(twin_rows)
     torch.cuda.synchronize()
     (Gk, lk, gsk), (Gp, lp, gsp) = runs
     bwd_gaps = {}  # per row, leaf and slot table column: |kernel - twin| over its max
@@ -1245,47 +1296,33 @@ for b in (0, 2, LAST_BOUNCE):
     bwd_gap = max(bwd_gaps.values())
     bwd_err = max(float((Gk - Gp).abs().max()), max(float((lk[k] - lp[k]).abs().max()) for k in lp),
                   float((gsk - gsp).abs().max()))
-    # the kernel alone as the step launches it (the winner cotangents into
-    # tricot; slot_scatter is timed below), its twin with the slot table's
-    # gradient
-    gtk, tck = diff_trip.leaf_table_zeros(plan), torch.empty((9, n_l), device=DEV)
+    # the kernel as the step launches it (the slot table's gradient
+    # wanted), its twin the same
+    gtk, gsk_t = diff_trip.leaf_table_zeros(plan), torch.zeros_like(diff_dp.table)
 
     def restore_bwd():
         Gk.copy_(rb["G"])
         gtk.zero_()
+        gsk_t.zero_()
 
     def call_bwd():
-        diff_trip.diff_trip_bwd_lanes(diff_dp, Gk, res_b, rb["seed"], b, gtk, tck)
+        bwd_w(diff_dp, Gk, res_b, rb["seed"], b, gtk, gsk_t)
 
     bwd_ms = events_ms(restore_bwd, call_bwd, 10)
     bwd_dev = kernel_ms(restore_bwd, call_bwd, 10)
     bwd_plain = events_ms(restore_bwd, lambda: diff_trip.diff_trip_bwd_plain(
         diff_dp, Gk, res_b, rb["seed"], b, gtk, gsp), 1)
-    # slot_scatter on this bounce's winner cotangents (tricot on the lanes
-    # with a triangle, zero elsewhere) and slots, as the step hands it
-    # them; index_add_ of the clamped slots computes the same function
-    slot_b = res_b.i[1]
-    cot_b = torch.where(slot_b >= 0, tck, 0.0).t()
-    g_k = slot_scatter(torch.zeros_like(diff_dp.table), slot_b, cot_b)
-    g_p = slot_scatter_plain(torch.zeros_like(diff_dp.table), slot_b, cot_b)
-    clamped = slot_b.clamp(min=0).long()
-    g_lib = torch.zeros_like(diff_dp.table).index_add_(0, clamped, cot_b)
-    torch.cuda.synchronize()
-    scale = float(g_p.abs().max())
-    for label, other in (("its twin", g_p), ("index_add_", g_lib)):
-        assert torch.allclose(g_k, other, rtol=1e-5, atol=1e-5 * scale), \
-            f"slot_scatter bounce {b} vs {label}"
-    g_buf = torch.zeros_like(diff_dp.table)
-    ss_ms = events_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot_b, cot_b), 10)
-    ss_dev = kernel_ms(g_buf.zero_, lambda: slot_scatter(g_buf, slot_b, cot_b), 10)
-    ss_plain = events_ms(g_buf.zero_, lambda: slot_scatter_plain(g_buf, slot_b, cot_b), 3)
-    ss_lib = kernel_ms(g_buf.zero_, lambda: g_buf.index_add_(0, clamped, cot_b), 10)
+    # slot_scatter on this bounce's slots and the twin VJP's (N, 9) winner
+    # rows, as the body route's fetch would hand it them (its main path
+    # is phase 11's, where it is held on the rows that route hands it)
+    slot_b, cot_b = res_b.i[1], twin_rows.pop()[1]
+    ss = check_slot_scatter(f"bunny bounce {b}", diff_dp.table.shape[0], slot_b, cot_b)
     # the work
     hit = code >= 0
     on_tri = hit & (code % 2 == 1)
     n_live, n_hit, n_tri = int(live.sum()), int(hit.sum()), int(on_tri.sum())
     first_hits = n_hit if b == 0 else 0
-    n_rows = int(torch.unique(slot_b[on_tri]).numel())
+    n_rows = ss["work"]["slot_rows"]
     n_miss = n_live - n_hit
     table_b = plan.tables.table.numel() * 4
     n_leaf = plan.tables.n_sph * 4 + plan.scene.materials.albedo.shape[0] * 8 + 6
@@ -1306,25 +1343,24 @@ for b in (0, 2, LAST_BOUNCE):
     # diff_trip_bwd: every lane's code; a miss reads the cotangents of its
     # direction, radiance and throughput and its direction and throughput
     # residuals, writes the first and last of those cotangents; a hit reads
-    # its slot and seed, the cotangents of its ray, radiance and throughput
-    # and its ten float residuals, writes those of its ray and throughput;
-    # bounce 0's hits read and write the normal's and depth's; a triangle
-    # hit reads its table row and writes its cotangent; the scene table
-    # read, the leaf table's entries added to
-    bwd_bytes = (n_l * 4 + n_miss * (36 + 24 + 24) + n_hit * (8 + 48 + 40 + 36)
-                 + first_hits * 32 + n_tri * 72 + table_b + n_leaf * 16)
+    # its seed, the cotangents of its ray, radiance and throughput and its
+    # ten float residuals, writes those of its ray and throughput; bounce
+    # 0's hits read and write the normal's and depth's; a triangle hit
+    # reads its slot and its table row (a sphere hit needs no slot); the
+    # slot table gradient's rows the bounce adds into, once each; the scene
+    # table read, the leaf table's entries added to
+    bwd_bytes = (n_l * 4 + n_miss * (36 + 24 + 24) + n_hit * (4 + 48 + 40 + 36)
+                 + first_hits * 32 + n_tri * (4 + 36) + n_rows * 36 + table_b + n_leaf * 16)
     bwd_flops = n_hit * DIFF_BWD_HIT_FLOPS + n_miss * DIFF_MISS_FLOPS
-    ss_bytes = n_l * 4 + n_tri * 36 + n_rows * 36
     out = {}
-    for name, ms, dev_ms_, plain_ms, nbytes, flops, err, lib_ms in (
-            ("diff_trip_fwd", fwd_ms, fwd_dev, fwd_plain, fwd_bytes, fwd_flops, 0.0, None),
-            ("diff_trip_bwd", bwd_ms, bwd_dev, bwd_plain, bwd_bytes, bwd_flops, bwd_err, None),
-            ("slot_scatter", ss_ms, ss_dev, ss_plain, ss_bytes, n_tri * 9,
-             float((g_k - g_p).abs().max()), ss_lib)):
+    for name, ms, dev_ms_, plain_ms, nbytes, flops, err in (
+            ("diff_trip_fwd", fwd_ms, fwd_dev, fwd_plain, fwd_bytes, fwd_flops, 0.0),
+            ("diff_trip_bwd", bwd_ms, bwd_dev, bwd_plain, bwd_bytes, bwd_flops, bwd_err)):
         bound_ms, bound_by = bound(flops, nbytes)
         out[name] = dict(ms=ms, device_ms=dev_ms_, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, share_of_bound=bound_ms / dev_ms_, bytes=nbytes,
-                         flops=flops, max_abs_err=err, library_ms=lib_ms)
+                         flops=flops, max_abs_err=err, library_ms=None)
+    out["slot_scatter"] = {k: v for k, v in ss.items() if k != "work"}
     out["work"] = dict(lanes=n_l, live=n_live, hits=n_hit, triangle_hits=n_tri, slot_rows=n_rows,
                        bwd_rel_gap=bwd_gap, bwd_rel_gaps=bwd_gaps)
     diff_checks[f"bunny_step_bounce{b}"] = out
@@ -1340,7 +1376,7 @@ for b in (0, 2, LAST_BOUNCE):
               + (f", index_add_ {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
               + f"; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.4f} GFLOP; bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['share_of_bound']:.1%} of it")
-    del runs, Fk, Ik, Fp, Ip, Gk, Gp, gsk, gsp, gtk, tck, cot_b, rf, rb, res_b, g_buf
+    del runs, Fk, Ik, Fp, Ip, Gk, Gp, gsk, gsp, gtk, gsk_t, cot_b, rf, rb, res_b
 del diff_dp, first_dp
 
 # --- 7 -------------------------------------------------------------------
@@ -1776,6 +1812,40 @@ print(f"profiled step: device busy {a_busy_ms:.1f} ms = {a_busy_ms / 1e3 / a_wal
       f"{a_index_add_ms:.3f} ms in {sum(e.count for e in a_index_add)} calls (the positions' gather "
       f"backward)" if a_busy_ms > 0 else "profiled step: the profiler recorded no device time "
       "(not measured)")
+# slot_scatter on its main path: the (slot, rows) that the body route's
+# _FetchTriRows hands it on one more step, held against its twin and
+# index_add_, and timed, on the call with the most triangle lanes (the
+# kernels line's numbers) and the one with the fewest
+area_rows, fetch_scatter = [], intersect.slot_scatter
+
+
+def recording_area_scatter(g, slot, cot):
+    area_rows.append((g.shape[0], slot.clone(), cot.clone()))
+    return fetch_scatter(g, slot, cot)
+
+
+intersect.slot_scatter = recording_area_scatter
+try:
+    area_step()
+finally:
+    intersect.slot_scatter = fetch_scatter
+torch.cuda.synchronize()
+assert len(area_rows) == a_launches["slot_scatter"], (len(area_rows), a_launches)
+tri_lanes = [int((s_ >= 0).sum()) for _, s_, _ in area_rows]
+area_most = max(range(len(tri_lanes)), key=tri_lanes.__getitem__)
+area_ss = {}
+for k in sorted({area_most, min(range(len(tri_lanes)), key=tri_lanes.__getitem__)}):
+    r = area_ss[f"cornell_area_step_call{k}"] = check_slot_scatter(
+        f"cornell_area call {k}", *area_rows[k])
+    print(f"slot_scatter on the body route's rows, call {k} of {len(area_rows)} (triangle lanes "
+          f"{min(tri_lanes)}-{max(tri_lanes)} a call): {r['work']['lanes']} lanes, "
+          f"{r['work']['triangle_hits']} with a row, in {r['work']['slot_rows']} rows; equal to "
+          f"its twin and index_add_; {r['device_ms']:.4f} ms on the device ({r['ms']:.4f} a "
+          f"call by events), twin {r['plain_ms']:.3f} ms, index_add_ {r['library_ms']:.4f} ms; "
+          f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"{r['share_of_bound']:.1%} of it  [{smi}]")
+area_ss_top = area_ss[f"cornell_area_step_call{area_most}"]
+del area_rows
 lk, rk3, gk, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam)
 lp, rp3, gp, *_ = fwd_bwd(128, 1, NEE_BOUNCES, scn=area, cam=area_cam, intersect_fn=twin_diff,
                           any_hit=sweep_kernel.treelet_any_hit_plain)
@@ -2835,11 +2905,10 @@ report = {
     )] + [dict(
         # not Pallas in the JAX package: the differentiable trace_sample's
         # lax.scan over _bounce_body with refine_hit and its transpose
-        # (tpupt/render/integrator.py:499, :804; tpupt/render/intersect.py:450)
-        # and _fetch_tri_rows' backward scatter (intersect.py:436), compiled
-        # by XLA; main path the fwd+bwd step of phase 6 (its first call's
-        # launches); the top-level numbers are bounce 0 of its first sample
-        # (1024^2 lanes, all live)
+        # (tpupt/render/integrator.py:499, :804; tpupt/render/intersect.py:450),
+        # compiled by XLA; main path the fwd+bwd step of phase 6 (its first
+        # call's launches); the top-level numbers are bounce 0 of the bunny
+        # step's first sample (1024^2 lanes, all live)
         name=name, route="cuda", source="tpupt_torch/accel/csrc/diff_trip_kernels.cu",
         replaces=replaces, launches=d_launches[name],
         max_abs_err=max(c[name]["max_abs_err"] for c in diff_checks.values()),
@@ -2851,8 +2920,26 @@ report = {
                                    for k, v in harness_info.items()},
         inputs={k: dict(v[name], work=v["work"]) for k, v in diff_checks.items()},
     ) for name, replaces in (("diff_trip_fwd", "tpupt/render/integrator.py:499"),
-                             ("diff_trip_bwd", "tpupt/render/integrator.py:804"),
-                             ("slot_scatter", "tpupt/render/intersect.py:436"))],
+                             ("diff_trip_bwd", "tpupt/render/integrator.py:804"))] + [dict(
+        # not Pallas in the JAX package: _fetch_tri_rows' backward scatter,
+        # compiled by XLA; main path the body route's cornell_area fwd+bwd
+        # step of phase 11 (its launches), whose call with the most triangle
+        # lanes gives the top-level numbers; on the bunny step diff_trip_bwd
+        # runs the same scatter itself (bunny_step_launches), and the kernel
+        # is also held on the rows of that step's bounces (inputs)
+        name="slot_scatter", route="cuda", source="tpupt_torch/accel/csrc/diff_trip_kernels.cu",
+        replaces="tpupt/render/intersect.py:436", launches=a_launches["slot_scatter"],
+        bunny_step_launches=d_launches["slot_scatter"],
+        max_abs_err=max([r["max_abs_err"] for r in area_ss.values()]
+                        + [c["slot_scatter"]["max_abs_err"] for c in diff_checks.values()]),
+        **{k: area_ss_top[k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        fit_step_launches=fit_per_step["slot_scatter"],
+        harness_launches_per_call={k: v["launches_per_call"]["slot_scatter"]
+                                   for k, v in harness_info.items()},
+        inputs={**area_ss, **{k: dict(v["slot_scatter"], work=v["work"])
+                              for k, v in diff_checks.items()}},
+    )],
     # not launched by the main path, which runs its MT-and-fold arithmetic
     # inside treelet_closest_hit
     "off_path": [dict(

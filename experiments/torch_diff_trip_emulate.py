@@ -6,24 +6,35 @@ no nvcc.
 
 As ``experiments/torch_trip_emulate.py`` does for the trip kernels, g++
 compiles the source against stubs of the CUDA built-ins, each launch a
-loop over the blocks and threads, one thread at a time.  The warp and
-block sums of the backward's leaf table and of ``slot_scatter`` cannot run
-one thread at a time, so their four device functions (``block_table_zero``,
-``warp_add_keyed``, ``block_table_flush``, ``scatter_row``) are replaced by
-plain adds of each lane's values: the emulation checks the per-lane
-arithmetic, layout and control flow, not the reductions, which only the
-card runs (``chip_smoke.py`` holds them to the twins).  Both sides use
-correctly rounded float32 sqrt, rsqrt, sin and cos.
+loop over the blocks and threads, one thread at a time.  What a warp or a
+CTA does together cannot run one thread at a time, so six device
+functions are replaced by plain loops and adds (``REDUCTIONS``): the
+backward's CTA loop (``cta_lanes``: the work counter, the chunk's scan and
+its queues by case become one loop over the lanes in order, each live lane
+handed to ``case_warp`` as a warp of one), the leaf table's warp sums and
+CTA flush (``block_table_zero``, ``warp_add_keyed``,
+``block_table_flush``), and the slot table's scatter (``scatter_row``,
+which the backward's triangle lanes and ``slot_scatter`` call, and
+``slot_scatter``'s 16-byte slot loads passed round the warp,
+``round_slots``, which becomes each lane's own slot read).  The
+emulation checks each case's per-lane arithmetic, the layout and the
+control flow around them, not the reductions or the queues, which only the
+card runs (``chip_smoke.py`` and the card tests hold them to the twins).
+Both sides use correctly rounded float32 sqrt, rsqrt, sin and cos.
 
 For each scene (spheres of all four materials; the same with two meshes;
 bunny.json), with roulette and without: the differentiable render through
 the emulated kernels against the same render through the twins, forward
-bit-equal, and every leaf's gradient, the loss taking colour, normal and
-depth, within rtol 1e-5 of the twins' (atol 1e-5 x the leaf's max
-|grad|).  Exits non-zero if any differs.
+bit-equal, and every leaf's gradient (the loss taking colour, normal and
+depth) and each sample's slot table gradient within rtol 1e-5 of the
+twins' (atol 1e-5 x the leaf's or table's max |grad|).  Exits non-zero if
+any differs.  ``tests/test_torch_diff_trip_emulated.py`` runs the same
+comparison at 8^2, and ``slot_scatter``'s emulation against
+``index_add_``.
 """
 
 import argparse
+import contextlib
 import ctypes
 import inspect
 import os
@@ -49,16 +60,28 @@ from tpupt_torch.render.integrator import render_image, render_route  # noqa: E4
 from tpupt_torch.scene.description import SceneDescription  # noqa: E402
 from tpupt_torch.scene.procedural import icosphere  # noqa: E402
 
-# the warp- and block-level sums as plain adds, one thread at a time; the
-# shared table is a static array that the block's last thread flushes
+# what a warp or a CTA does together, as plain loops and adds one thread at
+# a time: each block's thread 0 takes chunks from the work counter and runs
+# their lanes in order, and the shared table is a static array that each
+# block's last thread flushes
 REDUCTIONS = {
+    "cta_lanes": """inline void cta_lanes(const BwdArgs& a, double* sm, int*, unsigned short*) {
+  if (threadIdx.x != 0) return;
+  const int chunks = (int)(((long long)a.n + kChunk - 1) / kChunk);
+  for (int t; (t = take_chunk(a.work, chunks)) < chunks;) {
+    for (int i = t * kChunk; i < a.n && i < (t + 1) * kChunk; ++i) {
+      const int code = a.res_i[(size_t)R_CODE * a.n + i];
+      if (code != kDead) case_warp(a, sm, code == kMiss ? C_MISS : ((code & 1) ? C_TRI : C_SPHERE), i);
+    }
+  }
+}""",
     "block_table_zero": "inline void block_table_zero(double*, int) {}",
     "warp_add_keyed": """template <int W>
 inline void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
   if (key >= 0) for (int j = 0; j < W; ++j) sm[base + key * W + j] += v[j];
 }""",
     "block_table_flush": """inline void block_table_flush(double* sm, const BwdArgs& a, int n_ent) {
-  if (threadIdx.x != kThreads - 1) return;
+  if (threadIdx.x != kBwdThreads - 1) return;
   for (int e = 0; e < n_ent; ++e) {
     if (sm[e] != 0.0) a.gtab[leaf_index(a, e)] += sm[e];
     sm[e] = 0.0;
@@ -67,18 +90,34 @@ inline void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
     "scatter_row": """inline void scatter_row(float* g, int s, const float (&v)[9]) {
   if (s >= 0) for (int k = 0; k < 9; ++k) g[(size_t)s * 9 + k] += v[k];
 }""",
+    "round_slots": """inline void round_slots(const int* slot, long long w0, int n, bool, int (&s)[4]) {
+  for (int k = 0; k < 4; ++k) {
+    const long long i = w0 + 32 * k + (threadIdx.x & 31);
+    s[k] = i < n ? slot[i] : -1;
+  }
+}""",
 }
 STUBS = r"""
+struct int4 { int x, y, z, w; };
 inline double __shfl_xor_sync(unsigned, double v, int) { return v; }
 inline int __shfl_sync(unsigned, int v, int) { return v; }
 inline float __shfl_sync(unsigned, float v, int) { return v; }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
+inline float __fdividef(float a, float b) { return a / b; }
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 inline void __syncthreads() {}
 inline float atomicAdd(float* a, float v) { float o = *a; *a += v; return o; }
 inline double atomicAdd(double* a, double v) { double o = *a; *a += v; return o; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 132; return 0; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t) {
+  *v = 2;
+  return 0;
+}
 """
 
 
@@ -90,38 +129,42 @@ def build(out_dir) -> ctypes.CDLL:
                          flags=re.S)
         assert k == 1, name
     src = src.replace("extern __shared__ double sm[];", "static double sm[1 << 16] = {};")
+    # chunks of 16 lanes, so that a small sample's backward spans several
+    # CTAs, which hand the work counter on and leave it at 0
+    assert src.count("constexpr int kChunk = 2048;") == 1
+    src = src.replace("constexpr int kChunk = 2048;", "constexpr int kChunk = 16;")
     lib = emu.compile_emulation(emu.launches_as_loops(src, 3), out_dir, "diff_trip_emu")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tpupt_diff_trip_fwd.argtypes = [P, P, I] + [P] * 13 + [I] * 6 + [P] * 4
     lib.tpupt_diff_trip_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.tpupt_diff_trip_bwd_smem_bytes.argtypes = [I, I]
-    lib.tpupt_diff_trip_bwd.argtypes = [P, I] + [P] * 5 + [I] * 7 + [P] * 3
+    lib.tpupt_diff_trip_bwd.argtypes = [P, I] + [P] * 4 + [I, P] + [I] * 7 + [P] * 4
     lib.tpupt_slot_scatter.argtypes = [P, I, P, P, I, I, I, P]
     return lib
 
 
 def emulated_wrappers(lib) -> dict:
-    """diff_trip_fwd, diff_trip_bwd (with diff_trip_bwd_lanes) and
-    slot_scatter as their modules define them, with the CPU branch to the
-    twins and the device checks taken out and the emulation library in
-    place of the kernels'."""
+    """diff_trip_fwd, diff_trip_bwd and slot_scatter as their modules
+    define them, with the CPU branch to the twins and the device checks
+    taken out and the emulation library in place of the kernels'.  Sets
+    ``kernels.stream_of`` and ``kernels.check`` for the emulation
+    (``emulation`` puts them back)."""
     kernels.stream_of = lambda t: None
     kernels.check = lambda _lib, err, what: None if err == 0 else sys.exit(f"{what}: {err}")
     out = {}
     for mod, name, subs in (
             (diff_trip, "diff_trip_fwd", [('F.device.type == "cpu"', "False")]),
-            (diff_trip, "diff_trip_bwd_lanes", [(
-                "torch.cuda.get_device_properties(G.device).shared_memory_per_block_optin",
-                "232448")]),
+            (diff_trip, "diff_trip_bwd", [
+                ('G.device.type == "cpu"', "False"),
+                ("torch.cuda.get_device_properties(G.device).shared_memory_per_block_optin",
+                 "232448")]),
             (ss, "slot_scatter", [('g.device.type == "cpu"', "False"), ("g.is_cuda and ", ""),
-                                  ("kernels.load()", "_lib")]),
-            # the wrapper around the two above, which calls their emulations
-            (diff_trip, "diff_trip_bwd", [('G.device.type == "cpu"', "False")])):
+                                  ("kernels.load()", "_lib")])):
         src = inspect.getsource(getattr(mod, name))
         for a, b in subs:
             assert a in src, (name, a)
             src = src.replace(a, b)
-        scope = dict(vars(mod), _check=lambda *a: lib, _lib=lib, **out)
+        scope = dict(vars(mod), _check=lambda *a: lib, _lib=lib)
         exec(src, scope)
         out[name] = scope[name]
         if name == "slot_scatter":
@@ -129,41 +172,61 @@ def emulated_wrappers(lib) -> dict:
     return out
 
 
-def scenes(size):
-    """(name, scene, camera): spheres of the four materials, the same with
-    two icosphere meshes (metal and glass), bunny.json."""
-    from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path
-    from tpupt_torch.scene.json_parser import scene_from_json
+@contextlib.contextmanager
+def emulation(out_dir):
+    """The emulated wrappers (``emulated_wrappers``) of a g++ build in
+    ``out_dir``, with torch's sqrt, rsqrt, sin and cos correctly rounded
+    and one intra-op thread; every global it changes is put back on exit."""
+    patched = [(kernels, "stream_of"), (kernels, "check"), (torch, "sqrt"), (torch, "rsqrt"),
+               (torch, "sin"), (torch, "cos")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    threads = torch.get_num_threads()
+    try:
+        wrappers = emulated_wrappers(build(out_dir))
+        emu.correctly_rounded_torch()
+        torch.set_num_threads(1)
+        yield wrappers
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+        torch.set_num_threads(threads)
 
-    def spheres(mesh):
-        d = SceneDescription()
-        d.add_material("ground", "lambertian", albedo=(0.8, 0.8, 0.0))
-        d.add_material("blue", "lambertian", albedo=(0.1, 0.2, 0.5))
-        d.add_material("glass", "dielectric", refraction_index=1.5)
-        d.add_material("metal", "metal", albedo=(0.8, 0.6, 0.2), fuzz=0.3)
-        t = lambda v: np.asarray(m3.mat_translate(v), np.float64)  # noqa: E731
-        d.add_sphere(100.0, t([0, -100.5, -1.0]), "ground")
-        d.add_sphere(0.5, t([0, 0, -1.0]), "blue")
-        d.add_sphere(0.5, t([-1, 0, -1.0]), "glass")
-        d.add_sphere(0.5, t([1, 0, -1.0]), "metal")
-        if mesh:
-            v, f = icosphere(2)
-            d.add_mesh("ico", v, f)
-            d.add_mesh_object("ico", t([0.3, 0.6, -1.5]), "metal")
-            d.add_mesh_object("ico", t([-0.4, 0.5, -0.6]) @ np.diag([0.3, 0.3, 0.3, 1.0]),
-                              "glass")
-        return d.build(device="cpu")
 
-    cam = make_camera(vfov=np.pi / 2)
-    yield "spheres", spheres(False), cam
-    yield "spheres+meshes", spheres(True), cam
-    with tempfile.TemporaryDirectory() as tmp:
+SCENES = ("spheres", "spheres+meshes", "bunny.json")
+
+
+def scene(name, tmp):
+    """(scene, camera) of one of SCENES: spheres of the four materials,
+    the same with two icosphere meshes (metal and glass), bunny.json (its
+    model generated under ``tmp``)."""
+    if name == "bunny.json":
         import shutil
 
-        shutil.copytree(os.path.join(locate_asset_path(ROOT), "scenes"), os.path.join(tmp, "s"))
+        from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path
+        from tpupt_torch.scene.json_parser import scene_from_json
+
+        scenes_dir = os.path.join(tmp, "s")
+        if not os.path.isdir(scenes_dir):
+            shutil.copytree(os.path.join(locate_asset_path(ROOT), "scenes"), scenes_dir)
         ensure_models(os.path.join(tmp, "models"), names=["bunny.obj"])
-        d = scene_from_json(os.path.join(tmp, "s", "bunny.json"))
-        yield "bunny.json", d.build(leaf_size=32, device="cpu"), d.camera
+        d = scene_from_json(os.path.join(scenes_dir, "bunny.json"))
+        return d.build(leaf_size=32, device="cpu"), d.camera
+    d = SceneDescription()
+    d.add_material("ground", "lambertian", albedo=(0.8, 0.8, 0.0))
+    d.add_material("blue", "lambertian", albedo=(0.1, 0.2, 0.5))
+    d.add_material("glass", "dielectric", refraction_index=1.5)
+    d.add_material("metal", "metal", albedo=(0.8, 0.6, 0.2), fuzz=0.3)
+    t = lambda v: np.asarray(m3.mat_translate(v), np.float64)  # noqa: E731
+    d.add_sphere(100.0, t([0, -100.5, -1.0]), "ground")
+    d.add_sphere(0.5, t([0, 0, -1.0]), "blue")
+    d.add_sphere(0.5, t([-1, 0, -1.0]), "glass")
+    d.add_sphere(0.5, t([1, 0, -1.0]), "metal")
+    if name == "spheres+meshes":
+        v, f = icosphere(2)
+        d.add_mesh("ico", v, f)
+        d.add_mesh_object("ico", t([0.3, 0.6, -1.5]), "metal")
+        d.add_mesh_object("ico", t([-0.4, 0.5, -0.6]) @ np.diag([0.3, 0.3, 0.3, 1.0]), "glass")
+    return d.build(device="cpu"), make_camera(vfov=np.pi / 2)
 
 
 LEAVES = PARAM_LEAVES + tuple(f"materials.{k}" for k in MATERIAL_LEAVES)
@@ -173,55 +236,76 @@ def leaf(params, name):
     return params["materials"][name[10:]] if name.startswith("materials.") else params[name]
 
 
-def step(scene, cam, size, rr):
-    params = extract_params(scene)
-    buf, rays = render_image(with_params(scene, params), cam, size, size, 2, max_bounces=4,
-                             differentiable=True, rr_start=rr)
-    loss = (buf.color ** 2).sum() + 0.1 * buf.normal.sum() + 0.01 * buf.depth.clamp(max=20).sum()
-    grads = torch.autograd.grad(loss, [leaf(params, k) for k in LEAVES], allow_unused=True,
-                                materialize_grads=True)
-    return buf, int(rays), dict(zip(LEAVES, grads))
+def step(scn, cam, size, rr, wrappers):
+    """The differentiable render (2 spp, 4 bounces) through ``wrappers``'
+    diff_trip_fwd and diff_trip_bwd, its loss and gradients: (buffers,
+    segments, {leaf: grad}, [each sample's slot table gradient])."""
+    slots, bwd = [], wrappers["diff_trip_bwd"]
+
+    def recording_bwd(dp, G, res, seed, b, gtab, g_slot=None):
+        if g_slot is not None and not any(g_slot is s for s in slots):
+            slots.append(g_slot)
+        return bwd(dp, G, res, seed, b, gtab, g_slot)
+
+    saved = diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd
+    diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = wrappers["diff_trip_fwd"], recording_bwd
+    try:
+        params = extract_params(scn)
+        buf, rays = render_image(with_params(scn, params), cam, size, size, 2, max_bounces=4,
+                                 differentiable=True, rr_start=rr)
+        loss = ((buf.color ** 2).sum() + 0.1 * buf.normal.sum()
+                + 0.01 * buf.depth.clamp(max=20).sum())
+        grads = torch.autograd.grad(loss, [leaf(params, k) for k in LEAVES], allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = saved
+    return buf, int(rays), dict(zip(LEAVES, grads)), slots
+
+
+def compare(scn, cam, size, rr, emulated) -> dict:
+    """The render of ``step`` through the emulated kernels and through the
+    twins: whether the forward (colour, normal, depth, segments) is equal,
+    each leaf's and slot table gradient's largest gap over its max
+    |grad|, and ``ok``: the forward equal, every gradient finite and at
+    rtol 1e-5 (atol 1e-5 x its max |grad|)."""
+    twins = {"diff_trip_fwd": diff_trip.diff_trip_fwd, "diff_trip_bwd": diff_trip.diff_trip_bwd}
+    got = step(scn, cam, size, rr, emulated)
+    want = step(scn, cam, size, rr, twins)
+    same = {k: torch.equal(getattr(got[0], k), getattr(want[0], k))
+            for k in ("color", "normal", "depth")}
+    same["segments"] = got[1] == want[1]
+    pairs = [(k, got[2][k], want[2][k]) for k in LEAVES]
+    pairs += [(f"slot table {j}", a, b) for j, (a, b) in enumerate(zip(got[3], want[3]))]
+    gaps, ok = {}, all(same.values()) and len(got[3]) == len(want[3])
+    for k, a, b in pairs:
+        scale = float(b.abs().max())
+        gaps[k] = float((a - b).abs().max()) / scale if scale > 0 else 0.0
+        ok &= bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale))
+        ok &= bool(torch.isfinite(a).all())
+    return dict(ok=ok, forward_equal=same, segments=(got[1], want[1]), gaps=gaps,
+                slot_tables=len(got[3]))
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=16)
     args = ap.parse_args()
-    torch.set_num_threads(1)
     bad = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        emulated = emulated_wrappers(build(tmp))
-        twins = {"diff_trip_fwd": diff_trip.diff_trip_fwd, "diff_trip_bwd": diff_trip.diff_trip_bwd}
-        emu.correctly_rounded_torch()
-
-        def use(wrappers):
-            diff_trip.diff_trip_fwd = wrappers["diff_trip_fwd"]
-            diff_trip.diff_trip_bwd = wrappers["diff_trip_bwd"]
-
-        for name, scene, cam in scenes(args.size):
-            assert render_route(scene, True) == "diff_trip", name
+    with tempfile.TemporaryDirectory() as tmp, emulation(tmp) as emulated:
+        for name in SCENES:
+            scn, cam = scene(name, tmp)
+            assert render_route(scn, True) == "diff_trip", name
             for rr in (None, 1):
-                use(emulated)
-                got = step(scene, cam, args.size, rr)
-                use(twins)
-                want = step(scene, cam, args.size, rr)
-                same = {k: torch.equal(getattr(got[0], k), getattr(want[0], k))
-                        for k in ("color", "normal", "depth")}
-                gaps = {}
-                ok = all(same.values()) and got[1] == want[1]
-                for k in LEAVES:
-                    a, b = got[2][k], want[2][k]
-                    scale = float(b.abs().max())
-                    close = torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale)
-                    gaps[k] = float((a - b).abs().max()) / scale if scale > 0 else 0.0
-                    ok &= close and bool(torch.isfinite(a).all())
-                bad += not ok
-                print(f"{name:16s} rr {str(rr):4s} segments {got[1]} / {want[1]}; forward equal "
-                      f"{same}; largest gradient gap {max(gaps.values()):.3g} of its leaf's max "
-                      f"|grad| ({max(gaps, key=gaps.get)}){'' if ok else '  <-- differs'}",
-                      flush=True)
-                if not ok:
-                    print("   ", {k: f"{v:.3g}" for k, v in gaps.items()})
+                r = compare(scn, cam, args.size, rr, emulated)
+                bad += not r["ok"]
+                worst = max(r["gaps"], key=r["gaps"].get)
+                print(f"{name:16s} rr {str(rr):4s} segments {r['segments'][0]} / "
+                      f"{r['segments'][1]}; forward equal {r['forward_equal']}; "
+                      f"{r['slot_tables']} slot table gradients; largest gradient gap "
+                      f"{r['gaps'][worst]:.3g} of its max |grad| ({worst})"
+                      f"{'' if r['ok'] else '  <-- differs'}", flush=True)
+                if not r["ok"]:
+                    print("   ", {k: f"{v:.3g}" for k, v in r["gaps"].items()})
     sys.exit(1 if bad else 0)
 
 

@@ -60,12 +60,12 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 const int cudaSuccess = 0;
 struct Dim3 { unsigned x, y, z; };
-Dim3 blockIdx, threadIdx;
+Dim3 blockIdx, threadIdx, gridDim;
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline int atomicAdd(int* a, int v) { int o = *a; *a += v; return o; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
@@ -94,10 +94,11 @@ def source(name) -> str:
 
 def launches_as_loops(src, expect):
     """Each launch ``k<<<grid, block, smem, stream>>>(args)`` as a loop over
-    the blocks and threads, one thread at a time."""
+    the blocks and threads, one thread at a time (``gridDim.x`` set to the
+    grid)."""
     def loop(m):
         name, grid, block, args = m.groups()
-        return (f"for (unsigned b_ = 0; b_ < (unsigned)({grid}); ++b_) "
+        return (f"for (unsigned b_ = 0; b_ < (gridDim.x = (unsigned)({grid})); ++b_) "
                 f"for (unsigned t_ = 0; t_ < (unsigned)({block}); ++t_) "
                 f"{{ blockIdx.x = b_; threadIdx.x = t_; {name}({args}); }}")
 

@@ -1,8 +1,8 @@
 """Variants of the port's kernel library for the experiments that compare
 a design choice on one NVIDIA GPU.
 
-A variant is a copy of ``tpupt_torch/accel/csrc/*.cu`` with text
-substitutions, each of which must match the sources exactly once, built
+A variant is a copy of ``tpupt_torch/accel/csrc/*.cu`` and the headers
+they include (``*.cuh``) with text substitutions, each of which must match the sources exactly once, built
 with the library's own nvcc flags under ``build/tpupt_torch_kernels/
 variants/``, so the shipped sources keep one value of every choice.
 ``torch_anyhit_cta.py --variants`` and ``torch_winner_step.py --sweep``
@@ -21,7 +21,7 @@ def build(kernels, subs, extra_flags=(), csrc=None):
     ``extra_flags`` added; built once per sources, substitutions and
     flags."""
     csrc = csrc or kernels._CSRC
-    names = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    names = sorted(n for n in os.listdir(csrc) if n.endswith((".cu", ".cuh")))
     text = {}
     for n in names:
         with open(os.path.join(csrc, n)) as fh:
@@ -43,7 +43,8 @@ def build(kernels, subs, extra_flags=(), csrc=None):
         with open(os.path.join(out_dir, n), "w") as fh:
             fh.write(text[n])
     proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *extra_flags,
-                           *(os.path.join(out_dir, n) for n in names), "-o", path],
+                           *(os.path.join(out_dir, n) for n in names if n.endswith(".cu")),
+                           "-o", path],
                           capture_output=True, text=True, timeout=900)
     with open(path + ".log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)

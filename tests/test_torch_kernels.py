@@ -624,7 +624,9 @@ def test_diff_trip_route_equals_body_route_on_card(cuda_device, rr_start):
     """The differentiable trip's kernels against the body route on the same
     hit pass: the forward bit-equal, every gradient at rtol 1e-5 (atomic
     sums in no fixed order, the backward's in another order than
-    autograd's); the diff kernels launch, trip_tail does not."""
+    autograd's); the diff kernels launch, one diff_trip_bwd a bounce, which
+    scatters the slot table's gradient itself: no slot_scatter, no
+    trip_tail."""
     from tpupt_torch.render import diff_trip, trip_kernel
 
     scene, cam = _diff_scene(cuda_device)
@@ -635,7 +637,7 @@ def test_diff_trip_route_equals_body_route_on_card(cuda_device, rr_start):
     torch.cuda.synchronize()
     moved = {k: after[k] - before[k] for k in after}
     assert moved["diff_trip_fwd"] > 0 and moved["diff_trip_bwd"] == moved["diff_trip_fwd"], moved
-    assert moved["slot_scatter"] == moved["diff_trip_bwd"] and moved["trip_tail"] == 0, moved
+    assert moved["slot_scatter"] == 0 and moved["trip_tail"] == 0, moved
     assert rk == rp > 48 * 40 * 2
     for key in ("color", "normal", "depth"):
         assert torch.equal(getattr(bk, key), getattr(bp, key)), key
@@ -695,6 +697,79 @@ def test_diff_trip_kernels_equal_twins(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("live", ["no lane", "one warp across a chunk's end"])
+def test_diff_trip_bwd_on_dead_and_ragged_bounces(cuda_device, monkeypatch, live):
+    """diff_trip_bwd against its twin where its queues are empty or ragged:
+    bounce 0 of a 95 x 81 render (7,695 lanes: four chunks of the kernel's
+    2,048, the last cut short at a lane count that is not a multiple of 4)
+    with every lane dead, or with only the 32 lanes across the first
+    chunk's end live.  G, each leaf and the slot table's gradient at rtol
+    1e-5 (floor 1e-5 x the max), the dead lanes' G untouched, and with no
+    lane live no gradient at all."""
+    from tpupt_torch.render import diff_trip
+
+    scene, cam = _diff_scene(cuda_device)
+    seen, bwd = [], diff_trip.diff_trip_bwd
+
+    def rec_bwd(dp, G, res, seed, b, gtab, g_slot=None):
+        if b == 0 and not seen:
+            seen.append((dp, G.clone(), res, seed))
+        return bwd(dp, G, res, seed, b, gtab, g_slot)
+
+    monkeypatch.setattr(diff_trip, "diff_trip_bwd", rec_bwd)
+    params = extract_params(scene)
+    buf, _ = render_image(with_params(scene, params), cam, 95, 81, spp=1, max_bounces=2,
+                          differentiable=True)
+    torch.autograd.grad((buf.color ** 2).sum() + 0.1 * buf.normal.sum(), [params["positions"]])
+    dp, G, res, seed = seen[0]
+    assert dp.trip.n == 95 * 81
+    keep = torch.zeros(dp.trip.n, dtype=torch.bool, device=cuda_device)
+    if live != "no lane":
+        keep[2048 - 16:2048 + 16] = True
+    res = diff_trip.Residuals(res.f, torch.stack([
+        torch.where(keep, res.i[0], diff_trip.DEAD), torch.where(keep, res.i[1], -1)]).contiguous())
+    outs = []
+    for run in (bwd, diff_trip.diff_trip_bwd_plain):
+        Gx, gtab, g_slot = G.clone(), diff_trip.leaf_table_zeros(dp.trip), torch.zeros_like(dp.table)
+        run(dp, Gx, res, seed, 0, gtab, g_slot)
+        outs.append((Gx, gtab, diff_trip.split_leaf_table(dp.trip, gtab), g_slot))
+    torch.cuda.synchronize()
+    (Gk, tk_, lk, sk), (Gp, _, lp, sp) = outs
+    assert torch.equal(Gk[:, ~keep], G[:, ~keep])
+    for a, c in [*zip(Gk, Gp), *((lk[k], lp[k]) for k in lp), *zip(sk.t(), sp.t())]:
+        assert torch.allclose(a, c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+    if live == "no lane":
+        assert torch.equal(Gk, G) and not tk_.any() and not sk.any()
+    else:
+        assert not torch.equal(Gk[:, keep], G[:, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", ["every slot -1", "every lane on one row"])
+def test_slot_scatter_kernel_on_empty_and_one_row(cuda_device, slots):
+    """slot_scatter where no lane has a row, and where every lane has the
+    same one (each warp's 32 lanes matched into one group, 5,003 lanes'
+    rows in one row's atomics): equal to index_add_ of the rows with slot
+    >= 0.  The rows are small integers, so every order of the sums is
+    exact."""
+    from tpupt_torch.accel.slot_scatter import slot_scatter
+
+    r = np.random.default_rng(7)
+    n, rows = 5003, 300
+    slot = torch.full((n,), -1 if slots == "every slot -1" else 123, dtype=torch.int32,
+                      device=cuda_device)
+    cot = torch.from_numpy(r.integers(-8, 9, (n, 9)).astype(np.float32)).to(cuda_device)
+    before = slot_scatter.launches
+    got = slot_scatter(torch.zeros((rows, 9), device=cuda_device), slot, cot)
+    keep = slot >= 0
+    want = torch.zeros((rows, 9), device=cuda_device).index_add_(0, slot[keep].long(), cot[keep])
+    torch.cuda.synchronize()
+    assert slot_scatter.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool(got.any()) == (slots != "every slot -1")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["(N, 9)", "(9, N) transposed"])
 def test_slot_scatter_kernel_equals_index_add(cuda_device, layout):
     """slot_scatter against index_add_ of the rows with slot >= 0: runs of
@@ -739,3 +814,38 @@ def test_slot_scatter_kernel_fails_on_a_slot_past_the_table(cuda_device):
     run = subprocess.run([sys.executable, "-c", SLOT_PAST_END], cwd=root, capture_output=True,
                          text=True, timeout=600)
     assert run.returncode != 0 and "assert" in (run.stdout + run.stderr), run.stderr[-2000:]
+
+
+BWD_SLOT_PAST_END = """
+import sys
+import torch
+sys.path.insert(0, "tests")
+import test_torch_kernels as t
+from tpupt_torch.render import diff_trip
+seen, bwd = [], diff_trip.diff_trip_bwd
+def rec_bwd(dp, G, res, seed, b, gtab, g_slot=None):
+    if b == 0 and not seen:
+        seen.append((dp, G.clone(), res, seed))
+    return bwd(dp, G, res, seed, b, gtab, g_slot)
+diff_trip.diff_trip_bwd = rec_bwd
+t._diff_step(*t._diff_scene(torch.device("cuda")))
+dp, G, res, seed = seen[0]
+code = res.i[0]
+i = int(((code >= 0) & (code % 2 == 1)).nonzero()[0])
+res.i[1, i] = dp.table.shape[0]
+bwd(dp, G, res, seed, 0, diff_trip.leaf_table_zeros(dp.trip), torch.zeros_like(dp.table))
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.cuda
+def test_diff_trip_bwd_kernel_fails_on_a_slot_past_the_table(cuda_device):
+    """diff_trip_bwd on bounce 0 of a render with one triangle lane's slot
+    moved past the slot table's end: the kernel's assert fails the launch,
+    as slot_scatter's does (in a process of its own, since the failure ends
+    its CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", BWD_SLOT_PAST_END], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode != 0 and "device-side assert" in (run.stdout + run.stderr), \
+        run.stderr[-2000:]

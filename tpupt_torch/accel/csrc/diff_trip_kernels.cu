@@ -30,27 +30,25 @@
 //
 // and the backward pass, one bounce at a time in reverse:
 //
-//   diff_trip_bwd  one thread a lane: the bounce recomputed from its
-//                  residuals by the forward's own code (so every discrete
-//                  choice, the winner's branch, front, the lobe, roulette,
-//                  comes out as it did), then its vector-Jacobian product
-//                  by hand: the cotangent of the bounce's outputs (ray,
-//                  radiance, throughput, normal, depth) in, that of its
-//                  inputs out, in place; the leaf cotangents (each sphere's
-//                  centre and radius, each material's albedo, fuzz, index
-//                  and emission, the background) summed in double, in the
-//                  warp per row, then in the block in shared memory, then
-//                  one global atomic a block per entry, into a table in the
-//                  layout of the trip kernels' scene table; the winner
-//                  triangle's (9, N) cotangent;
-//   slot_scatter   (K6: `_fetch_tri_rows`'s backward, intersect.py:436) the
-//                  (N, 9) winner cotangent added into the (K*L, 9) slot
-//                  table's gradient: lanes without a triangle (slot -1,
-//                  whose cotangent is zero) add nothing, and the lanes of a
-//                  warp with the same slot sum theirs before one of them
-//                  makes the row's 9 atomics; a slot past the table fails
-//                  the launch, as index_add_'s does.  It also serves the body
-//                  route's `_FetchTriRows`.
+//   diff_trip_bwd  the bounce recomputed from its residuals by the forward's
+//                  own code (so every discrete choice, the winner's branch,
+//                  front, the lobe, roulette, comes out as it did), then its
+//                  vector-Jacobian product by hand: the cotangent of the
+//                  bounce's outputs (ray, radiance, throughput, normal,
+//                  depth) in, that of its inputs out, in place; the leaf
+//                  cotangents (each sphere's centre and radius, each
+//                  material's albedo, fuzz, index and emission, the
+//                  background) summed in double into a table in the layout
+//                  of the trip kernels' scene table; and (K6:
+//                  `_fetch_tri_rows`'s backward, intersect.py:436) the
+//                  winner triangle's cotangent added into the slot table's
+//                  gradient;
+//   slot_scatter   the same scatter as a kernel of its own: an (N, 9)
+//                  cotangent added into the (K*L, 9) slot table's gradient
+//                  at each lane's slot (-1: nothing), for the body route's
+//                  `_FetchTriRows` (lit differentiable renders and any
+//                  intersector passed in); a slot past the table fails the
+//                  launch, as index_add_'s does.
 //
 // The backward reproduces autograd's conventions, not the calculus:
 // torch.clamp passes the gradient at equality and not past it,
@@ -65,23 +63,55 @@
 // backward reads) and ~180 a lane that hits (the state read and written,
 // the residuals), plus the sweep's winner and payload on a triangle and
 // the normal and depth on bounce 0; diff_trip_bwd ~90 a miss lane and ~140
-// a hit lane, plus the winner's table row and cotangent on a triangle and
-// the normal's and depth's cotangents on bounce 0.  That is for a few
-// hundred float operations a lane (~800 a hit backward), well under the
-// 67 TFLOP/s FP32 rate's ~20 operations a byte.  So, as in the
-// trip kernels, one thread a lane over SoA rows keeps every access
-// coalesced, a dead lane reads 4 bytes and writes 8, and the small tables
-// are read by every thread at one address.  The leaf sums are the one
-// place lanes meet: a bounce's million lanes add into a few dozen words
-// (bg has 6, bunny's materials 24), so a direct atomic a lane would
-// serialise; the warp and block sums leave ~4,000 atomics a word a bounce.
+// a hit lane, plus the winner's table row and its slot row's gradient on a
+// triangle and the normal's and depth's cotangents on bounce 0.  That is
+// for a few hundred float operations a lane (~800 a hit backward), well
+// under the 67 TFLOP/s FP32 rate's ~20 operations a byte.  The forward runs
+// one thread a lane over SoA rows, every access coalesced, the small tables
+// read by every thread at one address.
+//
+// The backward is shaped by what held a thread-a-lane design back: a
+// bounce's live lanes thin out (5% of them on bunny's bounce 2, a few
+// hundred of a million on the last), the three cases (miss, sphere,
+// triangle) lie interleaved in pixel order, so a warp ran every branch one
+// after another, a hit lane keeps ~125 registers live (two 256-thread CTAs
+// an SM), and the leaf sums meet in a few dozen words.  So:
+//   - a persistent grid, as many CTAs as the card holds at once, takes
+//     chunks of 2,048 lanes from a work counter in device memory, which the
+//     launch's last take sets back to 0 (no host read, and no memset: one
+//     device operation a bounce);
+//   - a CTA reads a chunk's codes 16 bytes a load and queues its live
+//     lanes in shared memory by case, in lane order; its warps then take
+//     the queues 32 lanes of one case at a time, so a warp runs one branch
+//     on full warps, and a dead lane costs its 4-byte code: the work
+//     follows the live lanes, not N;
+//   - every load a lane's case needs is issued before any is used, so that
+//     a warp waits on memory once (the triangle row, which needs the slot,
+//     twice: the slot is asked for first);
+//   - the leaf sums go through the warp (per key, its entries' shuffle
+//     trees side by side), then the CTA's table in shared memory, kept over
+//     all its chunks and added into the global table once: ~(CTAs) double
+//     atomics a word a bounce, not one a 256-lane block;
+//   - on the triangle queue the winner's 9 cotangents go straight into the
+//     slot table's gradient: the queue is in lane order, so neighbouring
+//     pixels on one triangle are neighbouring lanes of the warp, whose runs
+//     of one slot sum their rows by a segmented shuffle tree (the same steps
+//     in every lane) before one lane of each run makes the row's 9 atomics:
+//     no (9, N) buffer between two kernels, and no second launch; a slot
+//     past the table fails the launch, as it does in slot_scatter.
+// slot_scatter, bound by its 4-byte slot a lane and a triangle lane's row:
+// a persistent grid, a thread's four slots read in one 16-byte load and
+// passed round the warp so that each round holds 32 neighbouring lanes, a
+// warp without a row in a round leaving at once, only a lane with a row
+// reading it, and the same segmented sums over runs of one slot.
 //
 // Numerics: as in trip_kernels.cu (trip_common.cuh): every forward
 // operation runs in the torch body's order, rounded once, so the forward is
 // bit-equal to the body route.  The backward's per-lane arithmetic runs in
 // another order than autograd's; its leaf sums over a million lanes run in
 // double, so the order of their atomics, which is not fixed, costs no
-// float32 bits (a float32 chain of ~4,000 block atomics a word would).
+// float32 bits.  The slot table's gradient is summed by float32 atomics in
+// no fixed order (a row takes the lanes of a few hundred pixels at most).
 
 #include <cassert>
 
@@ -420,27 +450,40 @@ struct BwdArgs {
   const int* res_i;
   const int* seed;  // the lane state's seed row
   const float* tri;  // the slot table (K*L, 9), null without a mesh
+  int tri_rows;  // its rows (0 without a mesh)
   Scene scene;
   int n_mat, bounce, rr_start;
   double* gtab;  // the leaf cotangents, in the scene table's layout
-  float* tricot;  // (9, n) the winner triangle's cotangent, null: not wanted
+  float* g_slot;  // (K*L, 9) the slot table's gradient, null: not wanted
+  int* work;  // the chunks taken so far: 0 at the launch, and set back to 0 by its last take
 };
 
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
+// The cases of a live lane, one queue each
+enum { C_MISS, C_SPHERE, C_TRI, kCases };
+// Lanes a CTA takes from the work counter at a time: kPer a thread, whose
+// codes it reads 16 bytes a load
+constexpr int kBwdThreads = kThreads;
+constexpr int kChunk = 2048;
+constexpr int kPer = kChunk / kBwdThreads;
+constexpr int kWarps = kBwdThreads / 32;
+static_assert(32 * kPer < 1024, "a warp's count of one case must fit its 10-bit field");
+// the CTA's control words in shared memory, after its leaf table: the chunk
+// taken, each warp's case counts, each warp's first queue place by case,
+// the chunk's count by case
+constexpr int kCtl = 1 + kWarps + kWarps * kCases + kCases;
 
 // The block's leaf table in shared memory (a compact layout: kSphLeaf a
 // sphere row, then kMatLeaf a material, then the background), zeroed
 __device__ __forceinline__ void block_table_zero(double* sm, int n_ent) {
-  for (int e = threadIdx.x; e < n_ent; e += kThreads) sm[e] = 0.0;
+  for (int e = threadIdx.x; e < n_ent; e += kBwdThreads) sm[e] = 0.0;
   __syncthreads();
 }
 
 // Each lane's W cotangents of leaf row `key` (-1: none): the warp's lanes of
-// one key sum theirs and one of them adds the sums into the block's table
-// at base + key * W; the loop runs once for each key the warp holds
+// one key sum theirs (32 floats: a few ulps), the W sums side by side, and
+// one of them adds the sums into the block's table, in double, at base +
+// key * W, where a sum is not zero; the loop runs once for each key the
+// warp holds
 template <int W>
 __device__ __forceinline__ void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
   unsigned todo = __ballot_sync(kFull, key >= 0);
@@ -448,9 +491,15 @@ __device__ __forceinline__ void warp_add_keyed(double* sm, int base, int key, co
     const int leader = __ffs(todo) - 1;
     const int k = __shfl_sync(kFull, key, leader);
     const bool mine = key == k;
-    for (int j = 0; j < W; ++j) {
-      const double s = warp_sum(mine ? (double)v[j] : 0.0);
-      if ((int)(threadIdx.x & 31) == leader) atomicAdd(&sm[base + k * W + j], s);
+    float acc[W];
+    for (int j = 0; j < W; ++j) acc[j] = mine ? v[j] : 0.0f;
+    for (int o = 16; o > 0; o >>= 1) {
+      for (int j = 0; j < W; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], o);
+    }
+    if ((int)(threadIdx.x & 31) == leader) {
+      for (int j = 0; j < W; ++j) {
+        if (acc[j] != 0.0f) atomicAdd(&sm[base + k * W + j], (double)acc[j]);
+      }
     }
     todo &= ~__ballot_sync(kFull, mine);
   }
@@ -467,264 +516,502 @@ __device__ __forceinline__ int leaf_index(const BwdArgs& a, int e) {
 // The block's sums into the global table: one atomic an entry that holds one
 __device__ __forceinline__ void block_table_flush(double* sm, const BwdArgs& a, int n_ent) {
   __syncthreads();
-  for (int e = threadIdx.x; e < n_ent; e += kThreads) {
+  for (int e = threadIdx.x; e < n_ent; e += kBwdThreads) {
     const double v = sm[e];
     if (v != 0.0) atomicAdd(a.gtab + leaf_index(a, e), v);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) diff_trip_bwd_kernel(const BwdArgs a) {
-  extern __shared__ double sm[];
-  const int n_ent = a.scene.n_sph * kSphLeaf + a.n_mat * kMatLeaf + kBgLeaf;
-  block_table_zero(sm, n_ent);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int n = a.n;
-  int skey = -1, mkey = -1, bkey = -1;  // the lane's sphere row, material, background (0)
-  float sv[kSphLeaf] = {}, mv[kMatLeaf] = {}, bv[kBgLeaf] = {};
-  const int code = i < n ? a.res_i[(size_t)R_CODE * n + i] : kDead;
-  if (code != kDead) {
-    float* G = a.G;
-#define GR(row) G[(size_t)(row) * n + i]
-#define RF(row) a.res_f[(size_t)(row) * n + i]
-    // the cotangents of what the bounce leaves as it is (the radiance's
-    // always, a miss's ray, the normal and depth after bounce 0) pass to
-    // its inputs unchanged, so they are not written; every load the lane's
-    // case needs is issued here, before any is used, so that a warp waits
-    // on memory once (the hit's triangle row, which needs its slot, twice)
-    V3 grd = v3(GR(G_RDX), GR(G_RDY), GR(G_RDZ));
-    const V3 grad = v3(GR(G_RADX), GR(G_RADY), GR(G_RADZ));
-    V3 gcol = v3(GR(G_COLX), GR(G_COLY), GR(G_COLZ));
-    const V3 rd = v3(RF(R_RDX), RF(R_RDY), RF(R_RDZ));
-    const V3 col = v3(RF(R_COLX), RF(R_COLY), RF(R_COLZ));
-    V3 gro = v3(0.0f, 0.0f, 0.0f), ro = gro, gn = gro;
-    float t_min = 0.0f, gdep = 0.0f;
-    int slot = -1;
-    uint32_t seed = 0u;
-    if (code != kMiss) {
-      gro = v3(GR(G_ROX), GR(G_ROY), GR(G_ROZ));
-      ro = v3(RF(R_ROX), RF(R_ROY), RF(R_ROZ));
-      t_min = RF(R_TMIN);
-      slot = a.res_i[(size_t)R_SLOT * n + i];
-      seed = (uint32_t)a.seed[i];
-      if (a.bounce == 0) {
-        gn = v3(GR(G_NX), GR(G_NY), GR(G_NZ));
-        gdep = GR(G_DEPTH);
-      }
+// Add each lane's row v into row s of g (s < 0: nothing).  A warp with no
+// row leaves at once.  Otherwise the runs of equal s over the warp's lanes
+// (the lanes come in lane order, and neighbouring pixels hit one triangle)
+// sum their rows by a segmented tree of shuffles, the same steps in every
+// lane, and each run's first lane makes the row's 9 atomics; a slot that
+// comes back after another makes a run of its own
+__device__ __forceinline__ void scatter_row(float* g, int s, const float (&v)[9]) {
+  if (__ballot_sync(kFull, s >= 0) == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, s, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != s);
+  const unsigned later = lane == 31 ? 0u : heads & (kFull << (lane + 1));
+  const int last = later != 0u ? __ffs(later) - 2 : 31;  // the run's last lane
+  float acc[9];
+  for (int k = 0; k < 9; ++k) acc[k] = v[k];
+  for (int o = 1; o < 32; o <<= 1) {
+    for (int k = 0; k < 9; ++k) {
+      const float t = __shfl_down_sync(kFull, acc[k], o);
+      if (lane + o <= last) acc[k] += t;
     }
-    if (code == kMiss) {
-      // radiance += col * background(rd): bg = down + t (up - down),
-      // t = 0.5 (normalize(rd).y + 1)
-      const float* bg = a.scene.tab + a.scene.bg_off;
-      const float t = 0.5f * (normalize(rd).y + 1.0f);
-      const V3 g_bg = grad * col;
-      gcol = gcol + grad * background(bg, rd);
-      float g_t = 0.0f;
-      for (int k = 0; k < 3; ++k) {
-        const float gk = k == 0 ? g_bg.x : (k == 1 ? g_bg.y : g_bg.z);
-        bv[k] = gk - gk * t;
-        bv[3 + k] = gk * t;
-        g_t += gk * (bg[3 + k] - bg[k]);
-      }
-      grd = grd + normalize_bwd(rd, v3(0.0f, 0.5f * g_t, 0.0f));
-      bkey = 0;
+  }
+  if (s >= 0 && ((heads >> lane) & 1u)) {
+    for (int k = 0; k < 9; ++k) atomicAdd(&g[(size_t)s * 9 + k], acc[k]);
+  }
+}
+
+#define GR(row) a.G[(size_t)(row) * a.n + i]
+#define RF(row) a.res_f[(size_t)(row) * a.n + i]
+
+// The backward of a lane that missed: radiance += col * background(rd),
+// bg = down + t (up - down), t = 0.5 (normalize(rd).y + 1).  The
+// background's cotangents go into bv; the radiance's cotangent, which the
+// bounce leaves as it is, is read and not written
+__device__ __forceinline__ void miss_lane(const BwdArgs& a, int i, float (&bv)[kBgLeaf]) {
+  V3 grd = v3(GR(G_RDX), GR(G_RDY), GR(G_RDZ));
+  const V3 grad = v3(GR(G_RADX), GR(G_RADY), GR(G_RADZ));
+  V3 gcol = v3(GR(G_COLX), GR(G_COLY), GR(G_COLZ));
+  const V3 rd = v3(RF(R_RDX), RF(R_RDY), RF(R_RDZ));
+  const V3 col = v3(RF(R_COLX), RF(R_COLY), RF(R_COLZ));
+  const float* bg = a.scene.tab + a.scene.bg_off;
+  const float t = 0.5f * (normalize(rd).y + 1.0f);
+  const V3 g_bg = grad * col;
+  gcol = gcol + grad * background(bg, rd);
+  float g_t = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float gk = k == 0 ? g_bg.x : (k == 1 ? g_bg.y : g_bg.z);
+    bv[k] = gk - gk * t;
+    bv[3 + k] = gk * t;
+    g_t += gk * (bg[3 + k] - bg[k]);
+  }
+  grd = grd + normalize_bwd(rd, v3(0.0f, 0.5f * g_t, 0.0f));
+  GR(G_RDX) = grd.x;
+  GR(G_RDY) = grd.y;
+  GR(G_RDZ) = grd.z;
+  GR(G_COLX) = gcol.x;
+  GR(G_COLY) = gcol.y;
+  GR(G_COLZ) = gcol.z;
+}
+
+// The backward of a lane that hit a triangle (kTri) or a sphere: the bounce
+// recomputed from its residuals by the forward's own code, then its VJP.
+// The material's cotangents go into mv (row mkey); a sphere's into sv (row
+// skey); the winner triangle's p0, e1, e2 into tv (slot table row slot)
+template <bool kTri>
+__device__ __forceinline__ void hit_lane(const BwdArgs& a, int i, int& mkey, float (&mv)[kMatLeaf],
+                                         int& skey, float (&sv)[kSphLeaf], int& slot,
+                                         float (&tv)[9]) {
+  // the cotangents of what the bounce leaves as it is (the radiance's
+  // always, the normal and depth after bounce 0) pass to its inputs
+  // unchanged, so they are not written; every load the lane needs is
+  // issued here, before any is used, so that a warp waits on memory once
+  // (the triangle row, which needs its slot, twice)
+  if (kTri) slot = a.res_i[(size_t)R_SLOT * a.n + i];  // first: the row's load waits on it
+  const V3 grd = v3(GR(G_RDX), GR(G_RDY), GR(G_RDZ));
+  const V3 grad = v3(GR(G_RADX), GR(G_RADY), GR(G_RADZ));
+  const V3 gcol = v3(GR(G_COLX), GR(G_COLY), GR(G_COLZ));
+  const V3 rd = v3(RF(R_RDX), RF(R_RDY), RF(R_RDZ));
+  const V3 col = v3(RF(R_COLX), RF(R_COLY), RF(R_COLZ));
+  const V3 gro = v3(GR(G_ROX), GR(G_ROY), GR(G_ROZ));
+  const V3 ro = v3(RF(R_ROX), RF(R_ROY), RF(R_ROZ));
+  const float t_min = RF(R_TMIN);
+  const int code = a.res_i[(size_t)R_CODE * a.n + i];
+  const uint32_t seed = (uint32_t)a.seed[i];
+  V3 gn = v3(0.0f, 0.0f, 0.0f);
+  float gdep = 0.0f;
+  if (a.bounce == 0) {
+    gn = v3(GR(G_NX), GR(G_NY), GR(G_NZ));
+    gdep = GR(G_DEPTH);
+  }
+  V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
+  if (kTri) {
+    // a slot past the table is a fault upstream (slot_scatter and
+    // index_add_ assert on it too): the launch fails, and the next call on
+    // the stream raises
+    assert((unsigned)slot < (unsigned)a.tri_rows && "diff_trip_bwd: slot past the end of the table");
+    const float* row = a.tri + (size_t)slot * 9;
+    p0 = load3(row);
+    e1 = load3(row + 3);
+    e2 = load3(row + 6);
+  }
+  Bounce B;
+  // the code with its case's bit set as the queue says, so the compiler
+  // keeps only that case's refine branch
+  bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, seed, kTri ? code | 1 : code & ~1,
+                 p0, e1, e2, B);
+  const Scatter& sc = B.sc;
+  const Refine& r = B.r;
+  // roulette: a survivor's throughput c * (1 / p), p the clamped largest
+  // channel of c
+  V3 gc = gcol;
+  if (B.rr_on && B.survive) {
+    gc = gcol * B.inv_p;
+    const float g_p = -dot(gcol, B.c) * (B.inv_p * B.inv_p);
+    const float g_raw = (B.p_raw >= 0.05f && B.p_raw <= 0.95f) ? g_p : 0.0f;
+    float g_m1, gx, gy, gz;
+    maximum_bwd(B.m1, B.c.z, g_raw, g_m1, gz);
+    maximum_bwd(B.c.x, B.c.y, g_m1, gx, gy);
+    gc = gc + v3(gx, gy, gz);
+  }
+  // throughput out = col * mult, radiance += col * emitted
+  const V3 gcol_in = gc * sc.mult + grad * sc.emitted;
+  const V3 g_mult = gc * col;
+  mkey = B.mat;
+  if (sc.mtype == kDiffuse || (sc.mtype == kMetal && sc.metal_ok)) {
+    mv[0] = g_mult.x;
+    mv[1] = g_mult.y;
+    mv[2] = g_mult.z;
+  }
+  if (sc.is_emis) {
+    const V3 g_em = grad * col;
+    mv[5] = g_em.x;
+    mv[6] = g_em.y;
+    mv[7] = g_em.z;
+  }
+  V3 gP = gro, gN = v3(0.0f, 0.0f, 0.0f), gro_in = gN, grd_in = gN;
+  float gt = 0.0f;
+  // the scatter's origin: the point, or point - n * k_off off a dielectric
+  if (sc.mtype != kDielectric) gN = -(gro * sc.k_off);
+  // its direction, by the material's lobe (an emitter's is the dielectric
+  // lobe's, as materials.shade selects it)
+  if (sc.mtype == kDiffuse) {
+    gN = gN + (sc.degenerate ? grd : normalize_bwd(sc.d_sum, grd));
+  } else if (sc.mtype == kMetal) {
+    reflect_bwd(rd, r.N, grd, grd_in, gN);
+    mv[3] = dot(grd, sc.s);
+  } else {
+    V3 g_unit = v3(0.0f, 0.0f, 0.0f);
+    if (sc.reflect_diel) {
+      reflect_bwd(sc.unit_d, r.N, grd, g_unit, gN);
     } else {
-      V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
-      if (code & 1) {
-        const float* row = a.tri + (size_t)slot * 9;
-        p0 = load3(row);
-        e1 = load3(row + 3);
-        e2 = load3(row + 6);
-      }
-      Bounce B;
-      bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, seed, code, p0, e1, e2, B);
-      const Scatter& sc = B.sc;
-      const Refine& r = B.r;
-      // roulette: a survivor's throughput c * (1 / p), p the clamped
-      // largest channel of c
-      V3 gc = gcol;
-      if (B.rr_on && B.survive) {
-        gc = gcol * B.inv_p;
-        const float g_p = -dot(gcol, B.c) * (B.inv_p * B.inv_p);
-        const float g_raw = (B.p_raw >= 0.05f && B.p_raw <= 0.95f) ? g_p : 0.0f;
-        float g_m1, gx, gy, gz;
-        maximum_bwd(B.m1, B.c.z, g_raw, g_m1, gz);
-        maximum_bwd(B.c.x, B.c.y, g_m1, gx, gy);
-        gc = gc + v3(gx, gy, gz);
-      }
-      // throughput out = col * mult, radiance += col * emitted
-      const V3 gcol_in = gc * sc.mult + grad * sc.emitted;
-      const V3 g_mult = gc * col;
-      mkey = B.mat;
-      if (sc.mtype == kDiffuse || (sc.mtype == kMetal && sc.metal_ok)) {
-        mv[0] = g_mult.x;
-        mv[1] = g_mult.y;
-        mv[2] = g_mult.z;
-      }
-      if (sc.is_emis) {
-        const V3 g_em = grad * col;
-        mv[5] = g_em.x;
-        mv[6] = g_em.y;
-        mv[7] = g_em.z;
-      }
-      V3 gP = gro, gN = v3(0.0f, 0.0f, 0.0f), gro_in = gN, grd_in = gN;
-      float gt = 0.0f;
-      // the scatter's origin: the point, or point - n * k_off off a dielectric
-      if (sc.mtype != kDielectric) gN = -(gro * sc.k_off);
-      // its direction, by the material's lobe (an emitter's is the
-      // dielectric lobe's, as materials.shade selects it)
-      if (sc.mtype == kDiffuse) {
-        gN = gN + (sc.degenerate ? grd : normalize_bwd(sc.d_sum, grd));
-      } else if (sc.mtype == kMetal) {
-        reflect_bwd(rd, r.N, grd, grd_in, gN);
-        mv[3] = dot(grd, sc.s);
-      } else {
-        V3 g_unit = v3(0.0f, 0.0f, 0.0f);
-        if (sc.reflect_diel) {
-          reflect_bwd(sc.unit_d, r.N, grd, g_unit, gN);
-        } else {
-          const float g_eta = refract_bwd(sc.unit_d, r.N, sc.ratio, grd, g_unit, gN);
-          // the ratio is 1 / ior entering, ior leaving
-          mv[4] = r.front ? -g_eta * (sc.ratio * sc.ratio) : g_eta;
-        }
-        grd_in = grd_in + normalize_bwd(rd, g_unit);
-      }
-      if (a.bounce == 0) {  // the first hit's normal and depth, not its inputs'
-        gN = gN + gn;
-        gt = gdep;
-      }
-      if (r.tri) {
-        const V3 g_cr = normalize_bwd(r.cr, r.front ? gN : -gN);
-        V3 ge1 = cross(r.e2, g_cr), ge2 = cross(g_cr, r.e1);
-        // P = ro + rd t, t = f * (e2 . q), q = (ro - p0) x e1, f = 1 / det
-        gro_in = gro_in + gP;
-        grd_in = grd_in + gP * r.t;
-        const float g_t = gt + dot(gP, rd);
-        const float g_f = g_t * r.num, g_num = g_t * r.f;
-        ge2 = ge2 + r.q * g_num;
-        const V3 g_q = r.e2 * g_num;
-        const V3 g_w = cross(r.e1, g_q);
-        ge1 = ge1 + cross(g_q, r.w);
-        gro_in = gro_in + g_w;
-        // det = e1 . (rd x e2), floored at 1e-12 in magnitude
-        const float g_det = r.floored ? 0.0f : -g_f * (r.f * r.f);
-        ge1 = ge1 + r.h * g_det;
-        const V3 g_h = r.e1 * g_det;
-        grd_in = grd_in + cross(r.e2, g_h);
-        ge2 = ge2 + cross(g_h, rd);
-        if (a.tricot != nullptr) {
-          const float vals[9] = {-g_w.x, -g_w.y, -g_w.z, ge1.x, ge1.y, ge1.z, ge2.x, ge2.y, ge2.z};
-          for (int k = 0; k < 9; ++k) a.tricot[(size_t)k * n + i] = vals[k];
-        }
-      } else {
-        const float* s = a.scene.tab + r.row * kSphereRow;
-        const float* inv = s;
-        const float* m = s + 12;
-        const V3 c = v3(s[24], s[25], s[26]);
-        const float rad = s[27];
-        // t = |P - ro|, clamped at 1e-30 under the root
-        const float g_l2 = r.l2 >= 1e-30f ? gt / (2.0f * r.t) : 0.0f;
-        const V3 g_rel = r.rel * (2.0f * g_l2);
-        gP = gP + g_rel;
-        gro_in = gro_in - g_rel;
-        // N = inv^T (+-outward), outward = (pobj - c) / rad
-        const V3 g_nsel = xform_vector(inv, gN);
-        const V3 g_out = r.front ? g_nsel : -g_nsel;
-        V3 g_pobj = g_out * r.rr;
-        V3 g_c = -g_pobj;
-        float g_r = -dot(g_out, r.pobj - c) * (r.rr * r.rr);
-        // P = m pobj
-        g_pobj = g_pobj + xform_normal(m, gP);
-        // pobj = oo + od t_obj, t_obj = t1 or t2 = (-b -+ sq) / (2 a)
-        V3 g_oo = g_pobj;
-        V3 g_od = g_pobj * r.t_obj;
-        const float g_tobj = dot(g_pobj, r.od);
-        const float g_t1 = r.use1 ? g_tobj : 0.0f, g_t2 = r.use1 ? 0.0f : g_tobj;
-        const float g_n1 = g_t1 / r.den, g_n2 = g_t2 / r.den;
-        float g_a = 2.0f * (-g_t1 * (r.t1 / r.den) - g_t2 * (r.t2 / r.den));
-        float g_b = -g_n1 - g_n2;
-        const float g_sq = g_n2 - g_n1;
-        // sq = sqrt(clamp(disc, 1e-12)), disc = b b - (4 a) cc
-        const float g_disc = r.disc >= 1e-12f ? g_sq / (2.0f * r.sq) : 0.0f;
-        g_b = g_b + 2.0f * r.b * g_disc;
-        g_a = g_a + 4.0f * (-g_disc * r.cc);
-        const float g_cc = -g_disc * r.a4;
-        // cc = oc . oc - rad^2, b = 2 (od . oc), a = od . od
-        V3 g_oc = r.oc * (2.0f * g_cc);
-        g_r = g_r - 2.0f * rad * g_cc;
-        const float g_dot = 2.0f * g_b;
-        g_od = g_od + r.oc * g_dot + r.od * (2.0f * g_a);
-        g_oc = g_oc + r.od * g_dot;
-        // oc = oo - c, oo = inv ro, od = normalize(inv rd)
-        g_oo = g_oo + g_oc;
-        g_c = g_c - g_oc;
-        gro_in = gro_in + xform_normal(inv, g_oo);
-        grd_in = grd_in + xform_normal(inv, normalize_bwd(r.odr, g_od));
-        skey = r.row;
-        sv[0] = g_c.x;
-        sv[1] = g_c.y;
-        sv[2] = g_c.z;
-        sv[3] = g_r;
-      }
-      // G is written only after the last read of the scene table, which
-      // it could alias
-      GR(G_ROX) = gro_in.x;
-      GR(G_ROY) = gro_in.y;
-      GR(G_ROZ) = gro_in.z;
-      if (a.bounce == 0) {
-        GR(G_NX) = 0.0f;
-        GR(G_NY) = 0.0f;
-        GR(G_NZ) = 0.0f;
-        GR(G_DEPTH) = 0.0f;
-      }
-      grd = grd_in;
-      gcol = gcol_in;
+      const float g_eta = refract_bwd(sc.unit_d, r.N, sc.ratio, grd, g_unit, gN);
+      // the ratio is 1 / ior entering, ior leaving
+      mv[4] = r.front ? -g_eta * (sc.ratio * sc.ratio) : g_eta;
     }
-    GR(G_RDX) = grd.x;
-    GR(G_RDY) = grd.y;
-    GR(G_RDZ) = grd.z;
-    GR(G_COLX) = gcol.x;
-    GR(G_COLY) = gcol.y;
-    GR(G_COLZ) = gcol.z;
+    grd_in = grd_in + normalize_bwd(rd, g_unit);
+  }
+  if (a.bounce == 0) {  // the first hit's normal and depth, not its inputs'
+    gN = gN + gn;
+    gt = gdep;
+  }
+  if (kTri) {
+    const V3 g_cr = normalize_bwd(r.cr, r.front ? gN : -gN);
+    V3 ge1 = cross(r.e2, g_cr), ge2 = cross(g_cr, r.e1);
+    // P = ro + rd t, t = f * (e2 . q), q = (ro - p0) x e1, f = 1 / det
+    gro_in = gro_in + gP;
+    grd_in = grd_in + gP * r.t;
+    const float g_t = gt + dot(gP, rd);
+    const float g_f = g_t * r.num, g_num = g_t * r.f;
+    ge2 = ge2 + r.q * g_num;
+    const V3 g_q = r.e2 * g_num;
+    const V3 g_w = cross(r.e1, g_q);
+    ge1 = ge1 + cross(g_q, r.w);
+    gro_in = gro_in + g_w;
+    // det = e1 . (rd x e2), floored at 1e-12 in magnitude
+    const float g_det = r.floored ? 0.0f : -g_f * (r.f * r.f);
+    ge1 = ge1 + r.h * g_det;
+    const V3 g_h = r.e1 * g_det;
+    grd_in = grd_in + cross(r.e2, g_h);
+    ge2 = ge2 + cross(g_h, rd);
+    const float vals[9] = {-g_w.x, -g_w.y, -g_w.z, ge1.x, ge1.y, ge1.z, ge2.x, ge2.y, ge2.z};
+    for (int k = 0; k < 9; ++k) tv[k] = vals[k];
+  } else {
+    const float* s = a.scene.tab + r.row * kSphereRow;
+    const float* inv = s;
+    const float* m = s + 12;
+    const V3 c = v3(s[24], s[25], s[26]);
+    const float rad = s[27];
+    // t = |P - ro|, clamped at 1e-30 under the root (the VJP's quotients
+    // need no correct rounding: __fdividef, within 2 ulp)
+    const float g_l2 = r.l2 >= 1e-30f ? __fdividef(gt, 2.0f * r.t) : 0.0f;
+    const V3 g_rel = r.rel * (2.0f * g_l2);
+    gP = gP + g_rel;
+    gro_in = gro_in - g_rel;
+    // N = inv^T (+-outward), outward = (pobj - c) / rad
+    const V3 g_nsel = xform_vector(inv, gN);
+    const V3 g_out = r.front ? g_nsel : -g_nsel;
+    V3 g_pobj = g_out * r.rr;
+    V3 g_c = -g_pobj;
+    float g_r = -dot(g_out, r.pobj - c) * (r.rr * r.rr);
+    // P = m pobj
+    g_pobj = g_pobj + xform_normal(m, gP);
+    // pobj = oo + od t_obj, t_obj = t1 or t2 = (-b -+ sq) / (2 a)
+    V3 g_oo = g_pobj;
+    V3 g_od = g_pobj * r.t_obj;
+    const float g_tobj = dot(g_pobj, r.od);
+    const float g_t1 = r.use1 ? g_tobj : 0.0f, g_t2 = r.use1 ? 0.0f : g_tobj;
+    const float g_n1 = __fdividef(g_t1, r.den), g_n2 = __fdividef(g_t2, r.den);
+    float g_a = 2.0f * (-g_t1 * __fdividef(r.t1, r.den) - g_t2 * __fdividef(r.t2, r.den));
+    float g_b = -g_n1 - g_n2;
+    const float g_sq = g_n2 - g_n1;
+    // sq = sqrt(clamp(disc, 1e-12)), disc = b b - (4 a) cc
+    const float g_disc = r.disc >= 1e-12f ? __fdividef(g_sq, 2.0f * r.sq) : 0.0f;
+    g_b = g_b + 2.0f * r.b * g_disc;
+    g_a = g_a + 4.0f * (-g_disc * r.cc);
+    const float g_cc = -g_disc * r.a4;
+    // cc = oc . oc - rad^2, b = 2 (od . oc), a = od . od
+    V3 g_oc = r.oc * (2.0f * g_cc);
+    g_r = g_r - 2.0f * rad * g_cc;
+    const float g_dot = 2.0f * g_b;
+    g_od = g_od + r.oc * g_dot + r.od * (2.0f * g_a);
+    g_oc = g_oc + r.od * g_dot;
+    // oc = oo - c, oo = inv ro, od = normalize(inv rd)
+    g_oo = g_oo + g_oc;
+    g_c = g_c - g_oc;
+    gro_in = gro_in + xform_normal(inv, g_oo);
+    grd_in = grd_in + xform_normal(inv, normalize_bwd(r.odr, g_od));
+    skey = r.row;
+    sv[0] = g_c.x;
+    sv[1] = g_c.y;
+    sv[2] = g_c.z;
+    sv[3] = g_r;
+  }
+  // G is written only after the last read of the scene table, which it
+  // could alias
+  GR(G_ROX) = gro_in.x;
+  GR(G_ROY) = gro_in.y;
+  GR(G_ROZ) = gro_in.z;
+  if (a.bounce == 0) {
+    GR(G_NX) = 0.0f;
+    GR(G_NY) = 0.0f;
+    GR(G_NZ) = 0.0f;
+    GR(G_DEPTH) = 0.0f;
+  }
+  GR(G_RDX) = grd_in.x;
+  GR(G_RDY) = grd_in.y;
+  GR(G_RDZ) = grd_in.z;
+  GR(G_COLX) = gcol_in.x;
+  GR(G_COLY) = gcol_in.y;
+  GR(G_COLZ) = gcol_in.z;
+}
+
 #undef GR
 #undef RF
+
+// One warp's lanes of one case c (a lane with i < 0 holds none): each
+// lane's backward, then the warp's leaf sums into the block's table and, on
+// triangles, its winner rows into the slot table's gradient
+__device__ __forceinline__ void case_warp(const BwdArgs& a, double* sm, int c, int i) {
+  const int mat_base = a.scene.n_sph * kSphLeaf;
+  if (c == C_MISS) {
+    float bv[kBgLeaf] = {};
+    if (i >= 0) miss_lane(a, i, bv);
+    warp_add_keyed(sm, mat_base + a.n_mat * kMatLeaf, i >= 0 ? 0 : -1, bv);
+    return;
   }
-  // every thread of the block reaches the sums, out-of-range and dead ones
-  // with no key
-  warp_add_keyed(sm, 0, skey, sv);
-  warp_add_keyed(sm, a.scene.n_sph * kSphLeaf, mkey, mv);
-  warp_add_keyed(sm, a.scene.n_sph * kSphLeaf + a.n_mat * kMatLeaf, bkey, bv);
+  int mkey = -1, skey = -1, slot = -1;
+  float mv[kMatLeaf] = {}, sv[kSphLeaf] = {}, tv[9] = {};
+  if (c == C_SPHERE) {
+    if (i >= 0) hit_lane<false>(a, i, mkey, mv, skey, sv, slot, tv);
+    warp_add_keyed(sm, 0, skey, sv);
+  } else {
+    if (i >= 0) hit_lane<true>(a, i, mkey, mv, skey, sv, slot, tv);
+    if (a.g_slot != nullptr) scatter_row(a.g_slot, slot, tv);
+  }
+  warp_add_keyed(sm, mat_base, mkey, mv);
+}
+
+// Group g of a chunk's queues (n_miss, n_sph, n_tri lanes, the sphere
+// queue's first group g_sph, the triangle queue's g_tri): its case c, and
+// the queue place of its lane `lane` (-1: past its case's last)
+__device__ __forceinline__ int group_place(int g, int lane, int n_miss, int n_sph, int n_tri,
+                                           int g_sph, int g_tri, int& c) {
+  int j, end;
+  if (g < g_sph) {
+    c = C_MISS, j = g * 32, end = n_miss;
+  } else if (g < g_tri) {
+    c = C_SPHERE, j = n_miss + (g - g_sph) * 32, end = n_miss + n_sph;
+  } else {
+    c = C_TRI, j = n_miss + n_sph + (g - g_tri) * 32, end = n_miss + n_sph + n_tri;
+  }
+  j += lane;
+  return j < end ? j : -1;
+}
+
+// A code's case as a count in its 10-bit field (a dead lane: none)
+__device__ __forceinline__ int case_count(int code) {
+  return code == kDead ? 0 : (code == kMiss ? 1 : ((code & 1) ? 1 << 20 : 1 << 10));
+}
+
+// The next chunk from the work counter.  Each CTA takes until it is handed
+// one past the last, so the launch's last take is its (chunks + CTAs)th: no
+// CTA takes after it, and it sets the counter back to 0 for the next launch
+// (no memset a launch)
+__device__ __forceinline__ int take_chunk(int* work, int chunks) {
+  const int t = atomicAdd(work, 1);
+  if (t == chunks + (int)gridDim.x - 1) *work = 0;
+  return t;
+}
+
+// The CTA's share of the bounce: chunks of kChunk lanes taken from the work
+// counter until none is left.  A chunk's codes are read 16 bytes a load, and
+// its live lanes queued in shared memory by case, in lane order (the three
+// queues one after another); then each warp takes 32 queued lanes of one
+// case at a time, so that a warp runs one branch.  A dead lane costs its
+// code.  ctl holds kCtl words, queue kChunk lane offsets.
+__device__ __forceinline__ void cta_lanes(const BwdArgs& a, double* sm, int* ctl,
+                                          unsigned short* queue) {
+  int* take = ctl;
+  int* warp_tot = ctl + 1;
+  int* warp_at = warp_tot + kWarps;  // [kWarps][kCases]
+  int* cnt = warp_at + kWarps * kCases;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* codes = a.res_i + (size_t)R_CODE * a.n;
+  const bool vec = ((uintptr_t)codes & 15u) == 0u;
+  const int chunks = (int)(((long long)a.n + kChunk - 1) / kChunk);
+  for (;;) {
+    if (threadIdx.x == 0) *take = take_chunk(a.work, chunks);
+    __syncthreads();
+    if (*take >= chunks) break;  // the same for every thread
+    const int lane0 = *take * kChunk, mine = lane0 + threadIdx.x * kPer;
+    int code[kPer];
+    if (vec && mine + kPer <= a.n) {
+      for (int k = 0; k < kPer; k += 4) {
+        const int4 v = *reinterpret_cast<const int4*>(codes + mine + k);
+        code[k] = v.x;
+        code[k + 1] = v.y;
+        code[k + 2] = v.z;
+        code[k + 3] = v.w;
+      }
+    } else {
+      for (int k = 0; k < kPer; ++k) code[k] = mine + k < a.n ? codes[mine + k] : kDead;
+    }
+    // the thread's count by case, 10 bits a case (a warp holds at most 32 *
+    // kPer of one), and its inclusive sum over the warp's threads
+    int own = 0;
+    for (int k = 0; k < kPer; ++k) own += case_count(code[k]);
+    int incl = own;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    if (threadIdx.x < kCases) {  // each case's first place for each warp
+      const int c = threadIdx.x;
+      int run = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        warp_at[w * kCases + c] = run;
+        run += (warp_tot[w] >> (10 * c)) & 1023;
+      }
+      cnt[c] = run;
+    }
+    __syncthreads();
+    // the thread's next place in each queue
+    const int before = incl - own;
+    int at_miss = warp_at[warp * kCases + C_MISS] + (before & 1023);
+    int at_sph = cnt[C_MISS] + warp_at[warp * kCases + C_SPHERE] + ((before >> 10) & 1023);
+    int at_tri = cnt[C_MISS] + cnt[C_SPHERE] + warp_at[warp * kCases + C_TRI] + (before >> 20);
+    for (int k = 0; k < kPer; ++k) {
+      const int code_k = code[k];
+      if (code_k == kDead) continue;
+      const int c = code_k == kMiss ? C_MISS : ((code_k & 1) ? C_TRI : C_SPHERE);
+      queue[c == C_MISS ? at_miss : (c == C_TRI ? at_tri : at_sph)] =
+          (unsigned short)(threadIdx.x * kPer + k);
+      at_miss += c == C_MISS;
+      at_sph += c == C_SPHERE;
+      at_tri += c == C_TRI;
+    }
+    __syncthreads();
+    // the queues in groups of 32 lanes of one case, group g to warp g % kWarps
+    const int n_miss = cnt[C_MISS], n_sph = cnt[C_SPHERE], n_tri = cnt[C_TRI];
+    const int g_sph = (n_miss + 31) >> 5, g_tri = g_sph + ((n_sph + 31) >> 5);
+    const int g_end = g_tri + ((n_tri + 31) >> 5);
+    for (int g = warp; g < g_end; g += kWarps) {
+      int c;
+      const int j = group_place(g, lane, n_miss, n_sph, n_tri, g_sph, g_tri, c);
+      case_warp(a, sm, c, j >= 0 ? lane0 + queue[j] : -1);
+    }
+    __syncthreads();  // the queue and the control words are the next chunk's
+  }
+}
+
+// A persistent grid: each CTA keeps its leaf table in shared memory over
+// every chunk it takes and adds it into gtab once.  Two CTAs an SM (at most
+// 128 registers a thread: a hit lane keeps ~125 live)
+__global__ void __launch_bounds__(kBwdThreads, 2) diff_trip_bwd_kernel(const BwdArgs a) {
+  extern __shared__ double sm[];
+  const int n_ent = a.scene.n_sph * kSphLeaf + a.n_mat * kMatLeaf + kBgLeaf;
+  int* ctl = reinterpret_cast<int*>(sm + n_ent);
+  block_table_zero(sm, n_ent);
+  cta_lanes(a, sm, ctl, reinterpret_cast<unsigned short*>(ctl + kCtl));
   block_table_flush(sm, a, n_ent);
 }
 
 // --- slot_scatter ------------------------------------------------------------
 
-// Add each lane's row v into row s of g (s < 0: nothing): the lanes of a
-// warp with the same s sum theirs, in lane order, and the first of them
-// makes the row's 9 atomics
-__device__ __forceinline__ void scatter_row(float* g, int s, const float (&v)[9]) {
-  const unsigned peers = __match_any_sync(kFull, s);
-  if (s < 0) return;
-  const bool leader = (int)(threadIdx.x & 31) == __ffs(peers) - 1;
-  for (int k = 0; k < 9; ++k) {
-    float acc = 0.0f;
-    for (unsigned m = peers; m != 0u; m &= m - 1u) acc += __shfl_sync(peers, v[k], __ffs(m) - 1);
-    if (leader) atomicAdd(&g[(size_t)s * 9 + k], acc);
+// The slots of a warp's 128 lanes from w0 on (-1 past n): read 16 bytes a
+// thread (lanes w0 + 4 lane .. + 3) where the row is aligned and they lie in
+// range, then passed round the warp so that round k holds lane w0 + 32 k +
+// lane: a round's lanes are neighbours, whose runs of one slot scatter_row
+// sums
+__device__ __forceinline__ void round_slots(const int* slot, long long w0, int n, bool vec,
+                                            int (&s)[4]) {
+  const int lane = threadIdx.x & 31;
+  const long long i4 = w0 + 4 * lane;
+  int q[4];
+  if (vec && i4 + 4 <= n) {
+    const int4 v = *reinterpret_cast<const int4*>(slot + i4);
+    q[0] = v.x;
+    q[1] = v.y;
+    q[2] = v.z;
+    q[3] = v.w;
+  } else {
+    for (int e = 0; e < 4; ++e) q[e] = i4 + e < n ? slot[i4 + e] : -1;
+  }
+  for (int k = 0; k < 4; ++k) {
+    const int src = 8 * k + (lane >> 2), e = lane & 3;
+    const int e0 = __shfl_sync(kFull, q[0], src), e1 = __shfl_sync(kFull, q[1], src);
+    const int e2 = __shfl_sync(kFull, q[2], src), e3 = __shfl_sync(kFull, q[3], src);
+    s[k] = e == 0 ? e0 : (e == 1 ? e1 : (e == 2 ? e2 : e3));
   }
 }
 
+// A persistent grid strides over the lanes a warp's 128 at a time, so every
+// lane of a warp runs the same iterations and scatter_row's votes see the
+// whole warp
 __global__ void __launch_bounds__(kThreads) slot_scatter_kernel(float* g, int rows, const int* slot,
                                                                 const float* cot, int n,
                                                                 int lane_stride, int comp_stride) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int s = i < n ? slot[i] : -1;
-  // a slot past the table is a fault upstream (index_add_ asserts on it
-  // too): the launch fails, and the next call on the stream raises
-  assert(s < rows && "slot_scatter: slot past the end of the table");
-  float v[9];
-  for (int k = 0; k < 9; ++k) {
-    v[k] = s >= 0 ? cot[(size_t)i * lane_stride + (size_t)k * comp_stride] : 0.0f;
+  const bool vec = ((uintptr_t)slot & 15u) == 0u;
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * kThreads * 4;
+  for (long long w0 = ((long long)blockIdx.x * kThreads + (threadIdx.x & ~31u)) * 4; w0 < n;
+       w0 += step) {
+    int s[4];
+    round_slots(slot, w0, n, vec, s);
+    // only a lane with a row reads it; the four rounds' rows are all asked
+    // for before the first is summed, so that a warp waits on memory once
+    float v[4][9] = {};
+    for (int k = 0; k < 4; ++k) {
+      if (s[k] >= 0) {
+        const long long i = w0 + 32 * k + lane;
+        for (int j = 0; j < 9; ++j) v[k][j] = cot[(size_t)i * lane_stride + (size_t)j * comp_stride];
+      }
+    }
+    for (int k = 0; k < 4; ++k) {
+      // a slot past the table is a fault upstream (index_add_ asserts on it
+      // too): the launch fails, and the next call on the stream raises
+      assert(s[k] < rows && "slot_scatter: slot past the end of the table");
+      scatter_row(g, s[k], v[k]);
+    }
   }
-  scatter_row(g, s, v);
+}
+
+// CTAs a persistent grid of `kernel` takes: as many as the card holds at
+// once at the kernel's occupancy, found once per device and shared memory
+struct Resident {
+  int device = -1;
+  size_t smem = 0;
+  int ctas = 0;
+};
+
+template <class K>
+cudaError_t resident_ctas(Resident& r, K kernel, int threads, size_t smem, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (r.device != dev || r.smem != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    r.device = dev;
+    r.smem = smem;
+    r.ctas = (per_sm > 1 ? per_sm : 1) * sms;
+  }
+  *ctas = r.ctas;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -753,20 +1040,24 @@ int tpupt_diff_trip_fwd(float* F, int* I, int n, const int* hint, const int* s_s
   return (int)cudaGetLastError();
 }
 
-// Shared memory diff_trip_bwd's blocks take for a scene's leaf table
+// Shared memory diff_trip_bwd's CTAs take for a scene: the leaf table in
+// double, the control words and the queue of a chunk's lanes
 size_t tpupt_diff_trip_bwd_smem_bytes(int n_sph, int n_mat) {
-  return sizeof(double) * (size_t)(n_sph * kSphLeaf + n_mat * kMatLeaf + kBgLeaf);
+  return sizeof(double) * (size_t)(n_sph * kSphLeaf + n_mat * kMatLeaf + kBgLeaf) +
+         sizeof(int) * kCtl + sizeof(unsigned short) * kChunk;
 }
 
 // diff_trip_bwd over n lanes: G updated in place, the leaf cotangents added
-// into gtab (double, the scene table's layout), the winner triangle's into
-// tricot (null: not wanted).  tri may be null (no mesh).
+// into gtab (double, the scene table's layout), the winner triangles' into
+// the slot table's gradient g_slot (null: not wanted).  tri, the slot table
+// of tri_rows rows, may be null (no mesh).  work is one int of scratch, 0
+// before the first launch on the stream, which each launch leaves at 0.
 int tpupt_diff_trip_bwd(float* G, int n, const float* res_f, const int* res_i, const int* seed,
-                        const float* tri, const float* tab, int n_sph, int n_mat, int mat_off,
-                        int obj_off, int bg_off, int bounce, int rr_start, double* gtab,
-                        float* tricot, cudaStream_t stream) {
-  BwdArgs a{G,    n,   res_f, res_i, seed, tri, {tab, n_sph, mat_off, obj_off, bg_off},
-            n_mat, bounce, rr_start, gtab, tricot};
+                        const float* tri, int tri_rows, const float* tab, int n_sph, int n_mat,
+                        int mat_off, int obj_off, int bg_off, int bounce, int rr_start,
+                        double* gtab, float* g_slot, int* work, cudaStream_t stream) {
+  BwdArgs a{G, n, res_f, res_i, seed, tri, tri_rows, {tab, n_sph, mat_off, obj_off, bg_off},
+            n_mat, bounce, rr_start, gtab, g_slot, work};
   const size_t smem = tpupt_diff_trip_bwd_smem_bytes(n_sph, n_mat);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(diff_trip_bwd_kernel,
@@ -774,7 +1065,12 @@ int tpupt_diff_trip_bwd(float* G, int n, const float* res_f, const int* res_i, c
     if (err != cudaSuccess) return (int)err;
   }
   if (n > 0) {
-    diff_trip_bwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, stream>>>(a);
+    static Resident resident;
+    int ctas = 0;
+    const cudaError_t err = resident_ctas(resident, diff_trip_bwd_kernel, kBwdThreads, smem, &ctas);
+    if (err != cudaSuccess) return (int)err;
+    const int chunks = (int)(((long long)n + kChunk - 1) / kChunk);
+    diff_trip_bwd_kernel<<<ctas < chunks ? ctas : chunks, kBwdThreads, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -784,7 +1080,12 @@ int tpupt_diff_trip_bwd(float* G, int n, const float* res_f, const int* res_i, c
 int tpupt_slot_scatter(float* g, int rows, const int* slot, const float* cot, int n,
                        int lane_stride, int comp_stride, cudaStream_t stream) {
   if (n > 0) {
-    slot_scatter_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+    static Resident resident;
+    int ctas = 0;
+    cudaError_t err = resident_ctas(resident, slot_scatter_kernel, kThreads, 0, &ctas);
+    if (err != cudaSuccess) return (int)err;
+    const int groups = (int)(((long long)n + kThreads * 4 - 1) / (kThreads * 4));
+    slot_scatter_kernel<<<ctas < groups ? ctas : groups, kThreads, 0, stream>>>(
         g, rows, slot, cot, n, lane_stride, comp_stride);
   }
   return (int)cudaGetLastError();

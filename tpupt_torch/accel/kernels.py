@@ -125,7 +125,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_diff_trip_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.tpupt_diff_trip_bwd_smem_bytes.argtypes = [_I, _I]
     lib.tpupt_diff_trip_bwd.restype = _I
-    lib.tpupt_diff_trip_bwd.argtypes = [_P, _I] + [_P] * 5 + [_I] * 7 + [_P] * 3
+    lib.tpupt_diff_trip_bwd.argtypes = [_P, _I] + [_P] * 4 + [_I, _P] + [_I] * 7 + [_P] * 4
     lib.tpupt_slot_scatter.restype = _I
     lib.tpupt_slot_scatter.argtypes = [_P, _I, _P, _P, _I, _I, _I, _P]
     lib.tpupt_rcp_check.restype = _I

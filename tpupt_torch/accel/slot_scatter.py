@@ -7,12 +7,20 @@ backward (``tpupt/render/intersect.py:436``): each lane's (9,) cotangent
 of its winner triangle's p0, e1, e2 is added into row ``slot`` of the
 (K*L, 9) slot table's gradient.  Lanes without a triangle (slot -1) add
 nothing: their cotangent is zero, and clamped to row 0 they would all
-contend for one row.  The lanes of a warp with the same slot sum their
-rows first, and one of them makes the row's 9 atomics.
+contend for one row.
 
-Both backward passes that read triangle rows by slot use it: the
-differentiable trip's (``render.diff_trip.DiffTrip``) and the body
-route's ``intersect._FetchTriRows``.
+It serves the body route's ``intersect._FetchTriRows`` (lit
+differentiable renders, and any intersector passed in).  The
+differentiable trip runs the same scatter inside ``diff_trip_bwd``'s
+kernel and launches this one never.
+
+The kernel is bound by its 4-byte slot a lane and a triangle lane's row
+(most lanes have none: 90% of bunny's first bounce): a persistent grid,
+each thread's four slots read in one 16-byte load and passed round the
+warp so that each round holds 32 neighbouring lanes; a warp with no row in
+a round leaves at once, only a lane with a row reads it, and the runs of
+one slot over neighbouring lanes sum their rows by a segmented shuffle
+tree before one lane of each run makes the row's 9 atomics.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ def slot_scatter(g: torch.Tensor, slot: torch.Tensor, cot: torch.Tensor) -> torc
     place; returns ``g``.
 
     g: (rows, 9) float32, contiguous.  slot: (N,) integer.  cot: (N, 9)
-    float32 with any strides (``diff_trip_bwd``'s (9, N) buffer as its
-    transpose, or ``_FetchTriRows``' (N, 9) stack).  A slot past g's rows
+    float32 with any strides (``_FetchTriRows``' (N, 9) stack, or a (9, N)
+    buffer as its transpose).  A slot past g's rows
     is an error, as in ``index_add_`` (the kernel's assert fails the
     launch).  Atomic adds: the sum of a row's lanes comes in no fixed
     order.  Launches are counted in

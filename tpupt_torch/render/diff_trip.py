@@ -18,12 +18,18 @@ runs it as the forward trip does (``trip_kernel``), per bounce
                  ``_bounce_finish``) on the lane state in place, and the
                  bounce's residuals;
 
-and its backward pass, per bounce in reverse, ``diff_trip_bwd``: the
-kernel of the same name (the bounce recomputed from its residuals and its
-vector-Jacobian product: the cotangent of its inputs, the leaf cotangents
-in the layout of the kernels' scene table, the winner triangle's (9, N)
-cotangent), then ``accel.slot_scatter`` of that into the slot table's
-gradient.
+and its backward pass, per bounce in reverse, ``diff_trip_bwd``: one
+launch of the kernel of the same name, the bounce recomputed from its
+residuals and its vector-Jacobian product: the cotangent of its inputs,
+the leaf cotangents in the layout of the kernels' scene table, and the
+winner triangles' cotangents added straight into the slot table's
+gradient (``_fetch_tri_rows``' scatter, fused in; ``accel.slot_scatter``
+is that scatter on its own, for the body route).  The kernel runs on a
+persistent grid: each CTA takes chunks of lanes from a work counter and
+queues each chunk's live lanes by case (miss, sphere, triangle) in shared
+memory, and its warps take the queues 32 lanes of one case at a time, so
+the work follows the live lanes, a warp runs one branch, and each CTA
+adds its leaf sums into the table once.
 
 The residuals follow the JAX package's checkpointed bounce: a bounce keeps
 its inputs and its discrete hit (``RES_F_KEYS``, ``RES_I_KEYS``: 48 bytes
@@ -347,28 +353,14 @@ def diff_trip_bwd(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab, g_sl
     into ``g_slot`` (shaped as ``dp.table``; None: not wanted).  ``seed``
     is the lane state's seed row (int32).  Returns G.
 
-    On the card: ``diff_trip_bwd_lanes``, then ``slot_scatter`` of its
-    winner cotangents into ``g_slot``."""
+    On the card one launch of the kernel does all of it, the slot table's
+    gradient included (the winner rows' scatter runs inside it), on a
+    persistent grid whose CTAs take chunks of lanes from a work counter
+    and queue each chunk's live lanes by case, so its work follows the
+    bounce's live lanes.  A slot past the slot table fails the launch.
+    Launches are counted in ``LAUNCHES["diff_trip_bwd"]``."""
     if G.device.type == "cpu":
         return diff_trip_bwd_plain(dp, G, res, seed, bounce, gtab, g_slot)
-    tricot = None
-    if g_slot is not None:
-        kernels.require(dp.table is not None and g_slot.shape == dp.table.shape
-                        and g_slot.dtype == torch.float32 and g_slot.device == G.device,
-                        "diff_trip_bwd: g_slot must be shaped as the slot table, float32")
-        tricot = torch.empty((9, dp.trip.n), dtype=torch.float32, device=G.device)
-    diff_trip_bwd_lanes(dp, G, res, seed, bounce, gtab, tricot)
-    if g_slot is not None:
-        slot_scatter(g_slot, res.i[1], tricot.t())
-    return G
-
-
-def diff_trip_bwd_lanes(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab, tricot=None):
-    """The ``diff_trip_bwd`` kernel alone (CUDA tensors only): G and
-    ``gtab`` as ``diff_trip_bwd``; where a triangle won, its rows'
-    cotangent into ``tricot`` (9, N; None: not wanted), the other lanes
-    left as they are.  Launches are counted in
-    ``LAUNCHES["diff_trip_bwd"]``."""
     plan = dp.trip
     req, n = kernels.require, plan.n
     tabs = plan.tables
@@ -386,10 +378,11 @@ def diff_trip_bwd_lanes(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab
         req(dp.table.dim() == 2 and dp.table.shape[1] == 9 and dp.table.dtype == torch.float32,
             "diff_trip_bwd: the slot table must be (K*L, 9) float32")
         tensors.append(dp.table)
-    if tricot is not None:
-        req(tuple(tricot.shape) == (9, n) and tricot.dtype == torch.float32,
-            f"diff_trip_bwd: tricot must be (9, {n}) float32")
-        tensors.append(tricot)
+    if g_slot is not None:
+        req(dp.table is not None and g_slot.shape == dp.table.shape
+            and g_slot.dtype == torch.float32,
+            "diff_trip_bwd: g_slot must be shaped as the slot table, float32")
+        tensors.append(g_slot)
     lib = _check("diff_trip_bwd", dp, tensors)
     n_mat = plan.scene.materials.albedo.shape[0]
     smem = lib.tpupt_diff_trip_bwd_smem_bytes(tabs.n_sph, n_mat)
@@ -397,14 +390,30 @@ def diff_trip_bwd_lanes(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab
     req(smem <= limit, f"diff_trip_bwd: the leaf table needs {smem} B of shared memory > {limit}")
     rr = tk._NO_RR if plan.rr_start is None else int(plan.rr_start)
     if n:
+        stream = kernels.stream_of(G)
         err = lib.tpupt_diff_trip_bwd(
             G.data_ptr(), n, res.f.data_ptr(), res.i.data_ptr(), seed.data_ptr(),
-            None if dp.table is None else dp.table.data_ptr(), tabs.table.data_ptr(), tabs.n_sph,
+            None if dp.table is None else dp.table.data_ptr(),
+            0 if dp.table is None else dp.table.shape[0], tabs.table.data_ptr(), tabs.n_sph,
             n_mat, tabs.mat_off, tabs.obj_off, tabs.bg_off, bounce, rr, gtab.data_ptr(),
-            None if tricot is None else tricot.data_ptr(), kernels.stream_of(G))
+            None if g_slot is None else g_slot.data_ptr(),
+            _work_counter(G.device, stream).data_ptr(), stream)
         kernels.check(lib, err, "diff_trip_bwd")
         LAUNCHES["diff_trip_bwd"] += 1
     return G
+
+
+_WORK: dict = {}  # (device, stream) -> diff_trip_bwd's work counter
+
+
+def _work_counter(device, stream) -> torch.Tensor:
+    """diff_trip_bwd's work counter for launches on ``stream``: zeroed
+    once, when made; each launch's last take sets it back to 0, so a
+    bounce's backward is one device operation."""
+    key = (str(device), stream)
+    if key not in _WORK:
+        _WORK[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _WORK[key]
 
 
 def launch_counts() -> dict[str, int]:

@@ -19,8 +19,8 @@ closest-hit sweep, over the lane state in SoA device buffers, and one
 4-byte read of the lanes left (``_run_trips``).  A differentiable sample
 of a scene without emitters through the default ids pass takes the
 differentiable trip (``diff_trip.DiffTrip``: per bounce ``trip_head``, the
-payload sweep and ``diff_trip_fwd``; backward ``diff_trip_bwd`` and
-``slot_scatter`` per bounce).  Everything else takes the body route,
+payload sweep and ``diff_trip_fwd``; backward one ``diff_trip_bwd`` per
+bounce, the slot table's scatter inside it).  Everything else takes the body route,
 ``_bounce_body`` in torch (under autograd when differentiable), which both
 trips equal bit for bit (any other ``intersect_fn``, even
 ``functools.partial(intersect_scene_ids)``, or ``any_hit`` takes it).
@@ -605,7 +605,7 @@ def render_route(scene: SceneArrays, differentiable: bool = False, intersect_fn=
 
     Differentiable: "diff_trip" (``diff_trip.DiffTrip``: per bounce
     ``trip_head``, the payload sweep and ``diff_trip_fwd``; backward
-    ``diff_trip_bwd`` and ``slot_scatter``) for a scene without emitters
+    ``diff_trip_bwd``, the slot table's scatter inside it) for a scene without emitters
     through the default ids pass (``intersect_scene_ids_diff`` with its
     own sweep), unsharded or sharded post hoc (``grad_psum_overlap=False``:
     the scene's cotangents reduced once, before the loop), where the
