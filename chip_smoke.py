@@ -18,8 +18,9 @@ mixed and dense packets (and both forms of the closest-hit kernel on the
 area-light scene's own rays), the two Cornell scenes rendered at
 BASELINE config 2's size on the trip route (trip_head, trip_nee, the
 sweeps and trip_tail's NEE mode), bit-equal to the ``_bounce_body`` route
-in turns, the trip kernels held to their twins on recorded trips of both
-and of sixteen lamps, and a fwd+bwd step on the area-light Cornell box.  Then the user's
+in turns, the trip kernels held to their twins on recorded trips of both,
+of sixteen lamps and of an emissive icosphere, and a fwd+bwd step on the
+area-light Cornell box.  Then the user's
 surfaces: the progressive engine (``PathTracer``) on the bunny render, its
 streaming mode bit-equal to the megakernel and the sweep on a compacted
 wavefront bounce; the CLI in subprocesses at the scenes' own settings,
@@ -109,6 +110,7 @@ from tpupt_torch.render.materials import shade  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
+from tpupt_torch.scene.procedural import icosphere  # noqa: E402
 from tpupt_torch.utils.image import to_uint8  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1582,8 +1584,8 @@ pay_area = compare_payload("cornell_area.json bounce-0 rays", area_r, *captured_
 # --- 10 ------------------------------------------------------------------
 phase(f"10 NEE renders on the trip route: cornell.json and cornell_area.json, {NEE_SIZE}^2, "
       f"{NEE_BOUNCES} bounces, rr {NEE_RR}; spp {NEE_SPP}; the body route in turns; trip_head, "
-      f"trip_nee and trip_tail's NEE mode vs their twins on trips 0, 2 and the last of each and "
-      f"of sixteen lamps at {NEE_SIZE}^2")
+      f"trip_nee and trip_tail's NEE mode vs their twins on trips 0, 2 and the last of each, "
+      f"of sixteen lamps and of an emissive icosphere at {NEE_SIZE}^2")
 
 
 def nee_render(name, size=NEE_SIZE, route="trip", intersect_fn=None, any_hit=None):
@@ -1726,6 +1728,18 @@ for i in range(16):
 m16.camera = make_camera(vfov=np.pi / 2)
 nee_scene["many16"], nee_desc["many16"], NEE_SPP["many16"] = m16.build(device=DEV), m16, 2
 assert len(nee_scene["many16"].s_light_objs) == 16 > integrator.NEE_UNROLL_MAX
+# tests/test_torch_trip_nee.py's emissive icosphere beside a floor: the mesh
+# light's area CDF has 320 entries (subdivision 2; both packages cap a
+# scene's emissive triangles at 512), which trip_nee inverts by binary search
+ico = tpupt_torch.SceneDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
+ico.add_material("floor", "lambertian", albedo=(0.7, 0.7, 0.7))
+ico.add_material("ilamp", "diffuse_light", emit=(6.0, 5.0, 4.0))
+ico.add_sphere(100.0, translate(0, -100.5, -1), "floor")
+ico.add_mesh("ico", *icosphere(2))
+ico.add_mesh_object("ico", translate(0.4, 0.2, -1.6) @ np.diag([0.35, 0.35, 0.35, 1.0]), "ilamp")
+ico.camera = make_camera(vfov=np.pi / 2)
+nee_scene["ico_light"], nee_desc["ico_light"], NEE_SPP["ico_light"] = ico.build(device=DEV), ico, 2
+assert nee_scene["ico_light"].s_tri_light_count == 320
 for name in NEE_SPP:
     _, rays_n, trips_n = nee_render(name)
     (_, rays_r, trips_r), n_rec, kept_n = record_trip_inputs(lambda: nee_render(name),

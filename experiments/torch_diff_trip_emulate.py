@@ -38,7 +38,6 @@ import contextlib
 import ctypes
 import inspect
 import os
-import re
 import sys
 import tempfile
 
@@ -98,36 +97,18 @@ inline void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
 }""",
 }
 STUBS = r"""
-struct int4 { int x, y, z, w; };
 inline double __shfl_xor_sync(unsigned, double v, int) { return v; }
-inline int __shfl_sync(unsigned, int v, int) { return v; }
-inline float __shfl_sync(unsigned, float v, int) { return v; }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
 inline float __fdividef(float a, float b) { return a / b; }
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
-inline void __syncthreads() {}
 inline float atomicAdd(float* a, float v) { float o = *a; *a += v; return o; }
 inline double atomicAdd(double* a, double v) { double o = *a; *a += v; return o; }
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-template <class K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 132; return 0; }
-template <class K>
-inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t) {
-  *v = 2;
-  return 0;
-}
 """
 
 
 def build(out_dir) -> ctypes.CDLL:
     src = emu.source("diff_trip_kernels.cu").replace("namespace {", STUBS + "\nnamespace {", 1)
-    for name, body in REDUCTIONS.items():
-        src, k = re.subn(r"(template <int W>\n)?__device__ __forceinline__ void " + name
-                         + r"\(.*?\n}\n", body.replace("\\", "\\\\") + "\n", src, count=1,
-                         flags=re.S)
-        assert k == 1, name
+    src = emu.replace_functions(src, REDUCTIONS)
     src = src.replace("extern __shared__ double sm[];", "static double sm[1 << 16] = {};")
     # chunks of 16 lanes, so that a small sample's backward spans several
     # CTAs, which hand the work counter on and leave it at 0

@@ -8,7 +8,12 @@ g++ compiles the source against stubs of the CUDA built-ins it uses (the
 launch qualifiers, the thread and block indices, the warp vote, the
 atomic, ``rsqrtf``): each launch ``k<<<grid, block, 0, stream>>>(args)``
 becomes a loop over the blocks and threads, and the warp vote counts one
-thread at a time.  The library goes into a temporary directory and is
+thread at a time.  What a CTA of ``trip_nee`` does together cannot run one
+thread at a time, so its CTA loop (``nee_cta``) is replaced by a plain one
+(``NEE_CTA``): each block's thread 0 runs the kernel's own staging, then
+its warps' chunks in turn, each thread's closing stores and each live
+lane (its hit, shading and NEE terms) in order; the warp's queue of live
+lanes runs only on the card.  The library goes into a temporary directory and is
 called through ctypes on CPU tensors by the wrappers of
 ``tpupt_torch.render.trip_kernel`` (their CPU branch to the twins taken
 out).  Both sides then use correctly rounded float32 sqrt, rsqrt (as
@@ -24,10 +29,12 @@ Renders the named scenes (the emitter scenes of
 ``tests/test_torch_trip_nee.py`` and the harness's multimesh) chained and
 per sample, with roulette and without, by both routes, and prints per
 render the segments and whether colour, normal and depth are equal.
-Exits non-zero if any differs.
+Exits non-zero if any differs.  ``tests/test_torch_trip_emulated.py`` runs
+the emitter scenes at 8^2 and the CDF search alone in the suite.
 """
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import inspect
@@ -52,6 +59,7 @@ STUBS = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 using std::isnan;
 using std::max;
@@ -77,6 +85,34 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 inline cudaError_t cudaGetLastError() { return 0; }
 #define cosf(x) ((float)std::cos((double)(x)))
 #define sinf(x) ((float)std::sin((double)(x)))
+#define __host__
+struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline void __syncthreads() {}
+inline void __syncwarp() {}
+inline int __shfl_sync(unsigned, int v, int) { return v; }
+inline float __shfl_sync(unsigned, float v, int) { return v; }
+inline int __shfl_up_sync(unsigned, int v, int) { return v; }
+inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }
+inline int __float_as_int(float v) { int i; std::memcpy(&i, &v, 4); return i; }
+template <class T> inline cudaError_t cudaMalloc(T** p, size_t n) {
+  *p = static_cast<T*>(std::calloc(1, n));
+  return 0;
+}
+inline cudaError_t cudaFree(void* p) { std::free(p); return 0; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 132; return 0; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t) {
+  *v = 2;
+  return 0;
+}
 """
 
 
@@ -109,6 +145,46 @@ def launches_as_loops(src, expect):
     return src.replace("(threadIdx.x & 31) == 0 && votes != 0u", "votes != 0u")
 
 
+def replace_functions(src, bodies):
+    """Each device function ``name`` of ``bodies`` (its definition up to the
+    first closing brace at the start of a line) replaced by its body."""
+    for name, body in bodies.items():
+        src, k = re.subn(r"(template <[^>]*>\n)?__device__ __forceinline__ void " + name
+                         + r"\(.*?\n}\n", body.replace("\\", "\\\\") + "\n", src, count=1,
+                         flags=re.S)
+        assert k == 1, name
+    return src
+
+
+# trip_nee's CTA one thread at a time: each block's thread 0 stages the
+# table, then runs each of its warps' chunks in turn: every thread's
+# closing stores, then the chunk's live lanes in lane order (the warp's
+# queue and its shuffles are what only the card runs)
+NEE_CTA = """template <bool kStaged>
+inline void nee_cta(const NeeArgs& a) {
+  if (threadIdx.x != 0) return;
+  for (unsigned t = 0; t < (unsigned)kNeeThreads; ++t) {
+    threadIdx.x = t;
+    if (kStaged) stage_table(a);
+  }
+  threadIdx.x = 0;
+  const int warps = gridDim.x * kNeeWarps, chunks = a.n_pad / kWarpLanes;
+  for (int w = 0; w < kNeeWarps; ++w) {
+    for (int c = blockIdx.x * kNeeWarps + w; c < chunks; c += warps) {
+      const int lane0 = c * kWarpLanes;
+      for (int t = 0; t < 32; ++t) close_lanes(a, lane0 + t * kNeePer);
+      for (int l = 0; l < kWarpLanes && lane0 + l < a.n; ++l) {
+        if (a.I[(size_t)I_ALIVE * a.n + lane0 + l] != 0) nee_lane<kStaged>(a, lane0 + l);
+      }
+    }
+  }
+}"""
+# an entry the tests call: the CDF search alone
+EXPORTS = """
+extern "C" int emu_cdf_index(const float* cum, int n, float u) { return cdf_index(cum, n, u); }
+"""
+
+
 def compile_emulation(src, out_dir, name) -> ctypes.CDLL:
     cpp, lib = os.path.join(out_dir, f"{name}.cpp"), os.path.join(out_dir, f"lib{name}.so")
     with open(cpp, "w") as fh:
@@ -118,12 +194,18 @@ def compile_emulation(src, out_dir, name) -> ctypes.CDLL:
     return ctypes.CDLL(lib)
 
 
-def build(out_dir) -> ctypes.CDLL:
-    """The emulation library of trip_kernels.cu, its entries declared as
+def build(out_dir, subs=()) -> ctypes.CDLL:
+    """The emulation library of trip_kernels.cu with each (old, new) of
+    ``subs`` applied (each must match once), its entries declared as
     ``kernels.bind`` declares them."""
-    src = source("trip_kernels.cu")
-    lib = compile_emulation(launches_as_loops(src, 4), out_dir, "trip_emu")
+    src = replace_functions(source("trip_kernels.cu"), {"nee_cta": NEE_CTA})
+    for old, new in subs:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    src = src.replace("extern __shared__ float4 nee_sm[];", "float4 nee_sm[1 << 16] = {};")
+    lib = compile_emulation(launches_as_loops(src, 4) + EXPORTS, out_dir, "trip_emu")
     P, I = ctypes.c_void_p, ctypes.c_int
+    lib.emu_cdf_index.argtypes = [P, I, ctypes.c_float]
     lib.tpupt_trip_head.argtypes = [P, P, I, I, P, I, P, P, P, P, P]
     lib.tpupt_trip_nee.argtypes = [P, P, I, I] + [P] * 9 + [I] * 7 + [P] * 5
     lib.tpupt_trip_tail.argtypes = [P, P, I] + [P] * 9 + [I] * 3 + [P] + [I] * 11 + [P] * 6
@@ -156,6 +238,28 @@ def correctly_rounded_torch():
     torch.cos = lambda x: cos(x.double()).float()
 
 
+@contextlib.contextmanager
+def emulation(out_dir, subs=()):
+    """(the emulated wrappers of ``emulated_wrappers``, the library) of a
+    g++ build in ``out_dir`` (with ``subs``, as ``build`` takes them), with
+    torch's sqrt, rsqrt, sin and cos correctly rounded and one intra-op
+    thread; every global it changes is put back on exit."""
+    patched = [(kernels, "stream_of"), (kernels, "check"), (torch, "sqrt"), (torch, "rsqrt"),
+               (torch, "sin"), (torch, "cos")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    threads = torch.get_num_threads()
+    try:
+        lib = build(out_dir, subs)
+        wrappers = emulated_wrappers(lib)
+        correctly_rounded_torch()
+        torch.set_num_threads(1)
+        yield wrappers, lib
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+        torch.set_num_threads(threads)
+
+
 def scenes(names, tmp):
     import shutil
 
@@ -176,16 +280,13 @@ def scenes(names, tmp):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=16)
-    ap.add_argument("--scenes", default="lamp,many16,quad_mixed,cornell.json,cornell_area.json,"
-                                        "multimesh")
+    ap.add_argument("--scenes", default="lamp,many16,quad_mixed,ico_light,cornell.json,"
+                                        "cornell_area.json,multimesh")
     args = ap.parse_args()
-    torch.set_num_threads(1)
     body = functools.partial(intersect_scene_ids)
     bad = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        emu = emulated_wrappers(build(tmp))
+    with tempfile.TemporaryDirectory() as tmp, emulation(tmp) as (emu, _lib):
         wrappers = {k: getattr(trip_kernel, k) for k in emu}
-        correctly_rounded_torch()
         for name, (scene, cam) in scenes(args.scenes.split(","), tmp):
             for rr in (None, 2):
                 for mode, kw in (("chained", {}), ("per sample", dict(chain_samples=False))):

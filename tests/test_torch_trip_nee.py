@@ -8,9 +8,14 @@ Scenes: the five emitter scenes of ``test_torch_nee.py``: one sphere lamp
 per lane, its sphere test excluding that light per lane), the quad light
 with a sphere lamp beside it (``quad_mixed``: the mesh term, then a
 sphere term; both sweeps), ``cornell.json`` (no mesh: no sweep at all)
-and ``cornell_area.json`` (the light is the only mesh, K = 1).  The three
-small scenes are built here with the port's own description, as
-``tests/test_emissive.py`` builds them for the JAX package.
+and ``cornell_area.json`` (the light is the only mesh, K = 1); and an
+emissive icosphere of 320 triangles beside a diffuse floor
+(``ico_light``: the mesh light's area CDF has 320 entries, which
+``trip_nee`` inverts by binary search; both packages cap a scene's
+emissive triangles at 512, ``TRI_LIGHT_MAX``).  The small scenes are built here
+with the port's own description, as ``tests/test_emissive.py`` builds the
+first three for the JAX package (``ico_light``'s JAX side is built here
+too).
 
 On the CPU the wrappers run their twins, which are assembled from the
 body route's own functions, so:
@@ -63,7 +68,7 @@ from tpupt_torch.scene.procedural import icosphere
 torch.set_num_threads(1)
 
 CORNELL = ("cornell.json", "cornell_area.json")
-SCENES = ("lamp", "many16", "quad_mixed") + CORNELL
+SCENES = ("lamp", "many16", "quad_mixed", "ico_light") + CORNELL
 KEYS = ("color", "normal", "depth")
 W = H = 16
 # the default hit pass, wrapped: the body route on the same hits
@@ -101,7 +106,18 @@ def _quad_mixed(d):
     d.add_sphere(0.2, _T([1.2, 0.6, -1.5]), "slamp")
 
 
-BUILDERS = {"lamp": _lamp, "many16": _many16, "quad_mixed": _quad_mixed}
+def _ico_light(d, ico=icosphere):
+    """An emissive icosphere of 320 triangles (``ico``: the port's or the
+    JAX package's ``procedural.icosphere``) beside a diffuse floor."""
+    d.add_material("floor", "lambertian", albedo=(0.7, 0.7, 0.7))
+    d.add_material("ilamp", "diffuse_light", emit=(6.0, 5.0, 4.0))
+    d.add_sphere(100.0, _T([0, -100.5, -1]), "floor")
+    v, f = ico(2)
+    d.add_mesh("ico", v, f)
+    d.add_mesh_object("ico", _T([0.4, 0.2, -1.6]) @ np.diag([0.35, 0.35, 0.35, 1.0]), "ilamp")
+
+
+BUILDERS = {"lamp": _lamp, "many16": _many16, "quad_mixed": _quad_mixed, "ico_light": _ico_light}
 
 
 @pytest.fixture(scope="module")
@@ -139,10 +155,12 @@ def _assert_equal(a, b):
 def test_scenes_cover_every_term_kind(scenes):
     kinds = {name: integrator._nee_kinds(s) for name, (s, _) in scenes.items()}
     assert kinds == {"lamp": ("light",), "many16": ("sampled",), "quad_mixed": ("mesh", "light"),
-                     "cornell.json": ("light",), "cornell_area.json": ("mesh",)}
+                     "ico_light": ("mesh",), "cornell.json": ("light",),
+                     "cornell_area.json": ("mesh",)}
     meshes = {name: OBJ_MESH in s.s_obj_kind for name, (s, _) in scenes.items()}
-    assert meshes == {"lamp": False, "many16": False, "quad_mixed": True, "cornell.json": False,
-                      "cornell_area.json": True}
+    assert meshes == {"lamp": False, "many16": False, "quad_mixed": True, "ico_light": True,
+                      "cornell.json": False, "cornell_area.json": True}
+    assert scenes["ico_light"][0].s_tri_light_count == 320
     for name, (s, _) in scenes.items():
         assert s.has_nee and render_route(s) == "trip", name
 
@@ -238,6 +256,16 @@ def test_one_any_hit_call_equals_one_per_term():
 
 # --- the trip route against the JAX package ------------------------------------
 
+def _jax_ico_light():
+    """``ico_light`` built by the JAX package's description."""
+    from tpupt.scene.description import SceneDescription as JaxDescription
+    from tpupt.scene.procedural import icosphere as jax_icosphere
+
+    d = JaxDescription(bg_down=(0, 0, 0), bg_up=(0, 0, 0))
+    _ico_light(d, jax_icosphere)
+    return d.build()
+
+
 
 @pytest.mark.parametrize("name", SCENES)
 def test_trace_sample_matches_jax(scenes_dir, name):
@@ -258,7 +286,8 @@ def test_trace_sample_matches_jax(scenes_dir, name):
         pscene, pcam = _port_scene(name, scenes_dir)
     else:
         build = {"lamp": _lamp_scene, "many16": lambda: _many_light_scene(16),
-                 "quad_mixed": lambda: _quad_light_scene(extra_sphere_lamp=True)}[name]
+                 "quad_mixed": lambda: _quad_light_scene(extra_sphere_lamp=True),
+                 "ico_light": _jax_ico_light}[name]
         jscene, jcam = build(), jax_make_camera(vfov=np.pi / 2)
         pscene, pcam = port_scene(jscene), make_camera(vfov=np.pi / 2)
     with jax.disable_jit():
@@ -388,3 +417,61 @@ def test_trip_route_equals_body_route_on_card(cuda_device, scenes_dir, name):
     after = trip_kernel.launch_counts()
     assert after["trip_nee"] > before["trip_nee"] and after["trip_tail"] > before["trip_tail"]
     _assert_equal(trip, render_image(scene, cam, intersect_fn=BODY, **kw))
+
+
+def _nee_outputs(plan, r, F, I, alive=None, kernel=True):
+    """trip_nee (or its twin) on a recorded trip's inputs, with the alive
+    row replaced by ``alive`` if given: (F, I, buffers)."""
+    buf = _buffers_from(plan, dict(r["head"], **r["nee_pre"]))
+    F, I = F.clone(), I.clone()
+    if alive is not None:
+        I[trip_kernel.I_KEYS.index("alive")] = alive
+    (trip_kernel.trip_nee if kernel else trip_kernel.trip_nee_plain)(plan, F, I, buf, r["sweep"])
+    return F, I, buf
+
+
+def _assert_nee_equal(got, want, what):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), what
+    for k in NEE_OUT:
+        a, b = getattr(got[2], k), getattr(want[2], k)
+        assert (a is None and b is None) or torch.equal(a, b), (what, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quad_mixed", "ico_light", "cornell.json"])
+def test_trip_nee_sparse_trip_and_pad_lanes_equal_twin(cuda_device, scenes_dir, name):
+    """trip_nee on bounce 1 of a 45x37 sample (1,665 lanes padded to
+    1,792: 127 pad lanes) with only five lanes left alive, spread over
+    the lanes, the last real lane among them; and with every lane dead:
+    each output equal to the twin's (a dead chunk writes only its masks
+    and -BIG seeds, the pad lanes their rows)."""
+    scene, cam = _port_scene(name, scenes_dir, device=cuda_device)
+    got = _recorded_trips(lambda: render_image(scene, cam, 45, 37, spp=1, max_bounces=4,
+                                               chain_samples=False), keep={1})
+    r = got[1]
+    plan = r["plan"]
+    assert plan.n == 1665 and plan.n_pad == 1792
+    for keep in ([3, 700, 1100, 1500, 1664], []):
+        alive = torch.zeros(plan.n, dtype=torch.int32, device=cuda_device)
+        alive[keep] = r["I1"][trip_kernel.I_KEYS.index("alive")][keep]
+        kern = _nee_outputs(plan, r, r["F1"], r["I1"], alive)
+        twin = _nee_outputs(plan, r, r["F1"], r["I1"], alive, kernel=False)
+        torch.cuda.synchronize()
+        _assert_nee_equal(kern, twin, keep)
+
+
+@pytest.mark.cuda
+def test_trip_nee_back_to_back_launches_equal_twin(cuda_device, scenes_dir):
+    """Three trip_nee launches in a row on one stream, with no host sync
+    between them, on copies of one trip's inputs: every launch's outputs
+    equal to the twin's, so no launch leaves state that the next one
+    reads (each warp takes its chunks by its index in the grid)."""
+    scene, cam = _port_scene("cornell_area.json", scenes_dir, device=cuda_device)
+    got = _recorded_trips(lambda: render_image(scene, cam, 64, 48, spp=1, max_bounces=3),
+                          keep={0})
+    r, plan = got[0], got[0]["plan"]
+    runs = [_nee_outputs(plan, r, r["F1"], r["I1"]) for _ in range(3)]
+    twin = _nee_outputs(plan, r, r["F1"], r["I1"], kernel=False)
+    torch.cuda.synchronize()
+    for j, run in enumerate(runs):
+        _assert_nee_equal(run, twin, j)

@@ -136,7 +136,6 @@ enum {
 // leaf cotangents a lane adds: a sphere's centre and radius; a material's
 // albedo, fuzz, ior and emission; the background's bg_down and bg_up
 constexpr int kSphLeaf = 4, kMatLeaf = 8, kBgLeaf = 6;
-constexpr unsigned kFull = 0xffffffffu;
 
 // The row of sphere object `obj` in the scene table
 __device__ __forceinline__ int sphere_row(const float* tab, int n_sph, int obj) {
@@ -984,34 +983,6 @@ __global__ void __launch_bounds__(kThreads) slot_scatter_kernel(float* g, int ro
       scatter_row(g, s[k], v[k]);
     }
   }
-}
-
-// CTAs a persistent grid of `kernel` takes: as many as the card holds at
-// once at the kernel's occupancy, found once per device and shared memory
-struct Resident {
-  int device = -1;
-  size_t smem = 0;
-  int ctas = 0;
-};
-
-template <class K>
-cudaError_t resident_ctas(Resident& r, K kernel, int threads, size_t smem, int* ctas) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (r.device != dev || r.smem != smem) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    }
-    if (err != cudaSuccess) return err;
-    r.device = dev;
-    r.smem = smem;
-    r.ctas = (per_sm > 1 ? per_sm : 1) * sms;
-  }
-  *ctas = r.ctas;
-  return cudaSuccess;
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Device code shared by the trip kernels (trip_kernels.cu) and the
 // differentiable trip's kernels (diff_trip_kernels.cu): the lane state's
 // rows, the scene table's rows, 3-vectors with torch's rounding, the
-// counter-based RNG, the background and materials.shade.  See
+// counter-based RNG, the background and materials.shade; and the size of
+// a persistent grid (resident_ctas).  See
 // trip_kernels.cu for what they replace and for the numerics: every float
 // operation runs in the torch body's order and is rounded once (the
 // library is built with --fmad=false and no fast math).
@@ -38,6 +39,7 @@ constexpr int kPrimNone = -1, kPrimSphere = 0, kPrimTriangle = 1;
 // integrator.NEE_UNROLL_MAX: up to this many sphere lights NEE samples
 // each, above one per lane
 constexpr int kUnrollMax = 4;
+constexpr unsigned kFull = 0xffffffffu;  // a warp's lanes
 
 struct V3 {
   float x, y, z;
@@ -212,6 +214,34 @@ __device__ __forceinline__ Scatter shade(const float* tab, int mat_off, const Hi
   o.specular = is_metal | is_diel;
   o.pdf_w = is_diff ? clamp_min(dot(d_diff, n_), 0.0f) * kInvPi : 0.0f;
   return o;
+}
+
+// CTAs a persistent grid of `kernel` takes: as many as the card holds at
+// once at the kernel's occupancy, found once per device and shared memory
+struct Resident {
+  int device = -1;
+  size_t smem = 0;
+  int ctas = 0;
+};
+
+template <class K>
+cudaError_t resident_ctas(Resident& r, K kernel, int threads, size_t smem, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (r.device != dev || r.smem != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    r.device = dev;
+    r.smem = smem;
+    r.ctas = (per_sm > 1 ? per_sm : 1) * sms;
+  }
+  *ctas = r.ctas;
+  return cudaSuccess;
 }
 
 }  // namespace

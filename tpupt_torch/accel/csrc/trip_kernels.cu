@@ -40,13 +40,13 @@
 // and with emitters
 //
 //   trip_head, treelet_closest_hit as above;
-//   trip_nee    one thread a lane: the hit record, background, normal and
-//               depth, the BSDF lobes, the MIS-weighted emission, and per
-//               NEE term (the mesh light; each sphere light up to four, or
-//               one sampled per lane) the light sample, its shadow ray's
-//               sphere test, its contribution, and the ray packed into the
-//               term's packet-aligned region of one row buffer, as
-//               treelet_any_hit takes it;
+//   trip_nee    the hit record, background, normal and depth, the BSDF
+//               lobes, the MIS-weighted emission, and per NEE term (the
+//               mesh light; each sphere light up to four, or one sampled
+//               per lane) the light sample, its shadow ray's sphere test,
+//               its contribution, and the ray packed into the term's
+//               packet-aligned region of one row buffer, as
+//               treelet_any_hit takes it (a persistent grid: see below);
 //   treelet_any_hit on every term's rows at once, for scenes with a mesh;
 //   trip_tail   its NEE mode: the lit terms' contributions added in the
 //               body's order, then roulette, the fold and the count.
@@ -68,6 +68,31 @@
 // costs little more than its launch, and keeps the scene's small tables
 // (spheres, materials, the background, the lights, the camera) in one
 // table that every thread reads at the same address.
+//
+// trip_nee is shaped by what held a thread-a-lane design back: a grid of
+// 256-lane CTAs ran in ~2.6 waves at 80 registers, a warp mixed four cases
+// (a miss, an emitter, a specular hit, a diffuse hit that runs every NEE
+// term and its loop over the sphere objects) and ran as long as its
+// costliest lane, every padded lane of a late trip launched a thread, and
+// the mesh light's CDF was inverted by counting compares over every
+// emissive triangle.  So:
+//   - a persistent grid, as many CTAs as the card holds at once (two an SM
+//     at ~90 registers), whose warps each take chunks of 64 lanes by their
+//     index in the grid: no counter and no barrier after the start, so the
+//     warps of an SM drift apart and one's loads overlap another's
+//     arithmetic;
+//   - the scene table up to the emissive triangles' rows is staged once a
+//     CTA in shared memory where it fits, so the sphere test's loop, the
+//     shading and the CDF search read shared memory;
+//   - a thread reads its two alive flags in one load and closes its lanes'
+//     entries in every term (mask 0, the -BIG seed) in one store each; the
+//     warp queues its live lanes in lane order and runs them one a thread:
+//     the hit, shading and write-back, then on a diffuse hit each NEE term
+//     in the same thread, which rewrites the entries of a lit term.  A
+//     chunk with no live lane costs its flags and those stores;
+//   - the CDF is inverted by binary search (the same index: cum never
+//     decreases), and a sphere whose quadratic has no real root skips the
+//     roots' two divides (sphere_blocks: its answer is no either way).
 //
 // Numerics: every float operation runs in the torch body's order and is
 // rounded once, as PyTorch's CUDA kernels round it (the library is built
@@ -240,7 +265,15 @@ __device__ __forceinline__ HitRec hit_record(const RecordArgs& r, const float* t
 
 // --- trip_nee ----------------------------------------------------------------
 
-// The light tables of the scene table from nee_off (trip_kernel.TripPlan.tables)
+// Where the emissive triangles' rows start in the scene table
+// (trip_kernel.TripPlan.tables): after the sphere lights, 1 / n_lights,
+// the area and its clamp, and the CDF
+__host__ __device__ __forceinline__ int tri_rows_off(int nee_off, int n_lights, int n_tri) {
+  return nee_off + n_lights * kLightRow + 3 + n_tri;
+}
+
+// The light tables of the scene table from nee_off; the triangle rows are
+// passed apart, since the staged table may hold all but them
 struct Lights {
   const float* sph;  // n_lights LIGHT_ROW rows
   float select;  // float32(1 / n_lights)
@@ -250,7 +283,8 @@ struct Lights {
   int n_lights, n_tri;
 };
 
-__device__ __forceinline__ Lights lights_of(const float* tab, int nee_off, int n_lights, int n_tri) {
+__device__ __forceinline__ Lights lights_of(const float* tab, const float* tri, int nee_off,
+                                            int n_lights, int n_tri) {
   Lights L;
   const float* p = tab + nee_off;
   L.sph = p;
@@ -259,7 +293,7 @@ __device__ __forceinline__ Lights lights_of(const float* tab, int nee_off, int n
   L.area = p[1];
   L.area_c = p[2];
   L.cum = p + 3;
-  L.tri = p + 3 + n_tri;
+  L.tri = tri;
   L.n_lights = n_lights;
   L.n_tri = n_tri;
   return L;
@@ -329,18 +363,52 @@ __device__ __forceinline__ float t_light(V3 p, V3 dir, V3 center, float radius) 
   return -b - sqrtf(disc);
 }
 
+// One sphere object (its table row s) of intersect.sphere_occlusion: it
+// hits the shadow ray in [1e-4, t_limit].  This is sphere_roots'
+// quadratic; where the discriminant is not >= 0, sphere_roots answers no
+// whatever its roots, so the test skips their two divides
+__device__ __forceinline__ bool sphere_blocks(const float* s, V3 p, V3 dir, float t_limit) {
+  const V3 c = v3(s[24], s[25], s[26]);
+  const float r = s[27];
+  const V3 oo = xform_point(s, p);
+  const V3 od = normalize(xform_vector(s, dir));
+  const V3 oc = oo - c;
+  const float a = dot(od, od);
+  const float b = 2.0f * dot(od, oc);
+  const float cc = dot(oc, oc) - r * r;
+  const float disc = b * b - 4.0f * a * cc;
+  if (!(disc >= 0.0f)) return false;
+  const float sq = sqrtf(clamp_min(disc, 0.0f));
+  const float t1 = (-b - sq) / (2.0f * a);
+  const float t2 = (-b + sq) / (2.0f * a);
+  return ((t1 >= 1e-4f) & (t1 <= t_limit)) | ((t2 >= 1e-4f) & (t2 <= t_limit));
+}
+
 // intersect.sphere_occlusion of one shadow ray: a sphere object other than
-// `exclude` hits it in [1e-4, t_limit]
+// `exclude` hits it
 __device__ __forceinline__ bool sphere_occluded(const float* tab, int n_sph, V3 p, V3 dir,
                                                 float t_limit, int exclude) {
   for (int o = 0; o < n_sph; ++o) {
     const float* s = tab + o * kSphereRow;
-    if ((int)s[28] == exclude) continue;
-    float t_obj;
-    V3 oo, od;
-    if (sphere_roots(s, p, dir, 1e-4f, t_limit, &t_obj, &oo, &od)) return true;
+    if ((int)s[28] != exclude && sphere_blocks(s, p, dir, t_limit)) return true;
   }
   return false;
+}
+
+// The area CDF inverted: the number of entries <= u, by binary search.
+// cum never decreases, so the entries <= u are a prefix and this is the
+// count integrator._nee_mesh_sample takes, clamped to the last triangle
+__device__ __forceinline__ int cdf_index(const float* cum, int n, float u) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (u >= cum[mid]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return min(lo, n - 1);
 }
 
 // One NEE term's sample (integrator.NeeTerm): its shadow ray, the lanes
@@ -359,10 +427,7 @@ __device__ __forceinline__ Term mesh_term(const float* tab, int mat_off, const L
   float u_sel = uniform(seed, bounce_counter(bounce, 12));
   float u1 = uniform(seed, bounce_counter(bounce, 13));
   float u2 = uniform(seed, bounce_counter(bounce, 14));
-  int idx = 0;  // the CDF inverted by compare-count
-  for (int k = 0; k < L.n_tri; ++k) idx += u_sel >= L.cum[k];
-  idx = min(idx, L.n_tri - 1);
-  const float* row = L.tri + idx * kTriLightRow;
+  const float* row = L.tri + cdf_index(L.cum, L.n_tri, u_sel) * kTriLightRow;
   const V3 p0 = load3(row), e1 = load3(row + 3), e2 = load3(row + 6);
   const int lmat = (int)row[10];
   float su = sqrtf(u1);
@@ -418,68 +483,164 @@ struct NeeArgs {
   float* contrib;  // (terms, 3, n)
   unsigned char* mask;  // (terms, n_pad)
   float* rows;  // (8, terms, n_pad), null without a mesh
+  int terms;  // NEE's terms a diffuse lane samples
+  int n_stage;  // floats of tab staged in shared memory: all but the triangle rows, or none
 };
 
-__device__ __forceinline__ int nee_terms(int n_lights, int n_tri) {
+__host__ __device__ __forceinline__ int nee_terms(int n_lights, int n_tri) {
   return (n_tri > 0 ? 1 : 0) + (n_lights > kUnrollMax ? 1 : n_lights);
 }
 
-__global__ void __launch_bounds__(kThreads) trip_nee_kernel(const NeeArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int n = a.n, n_pad = a.n_pad;
-  const int terms = nee_terms(a.n_lights, a.n_tri);
-  const size_t rows_stride = (size_t)terms * n_pad;  // one packed row of every term
-  if (i >= n) {  // pad lanes, as packets._pack_rows pads
-    if (i < n_pad) {
-      const float pad[8] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f, -kBig};
-      for (int t = 0; t < terms; ++t) {
-        a.mask[(size_t)t * n_pad + i] = 0;
-        if (a.rows != nullptr) {
-          for (int r = 0; r < 8; ++r) a.rows[r * rows_stride + (size_t)t * n_pad + i] = pad[r];
-        }
-      }
+// A persistent grid of CTAs whose warps each take chunks of kWarpLanes
+// lanes (kNeePer a thread, whose alive flags it reads in one load)
+constexpr int kNeeThreads = kThreads;
+constexpr int kNeeWarps = kNeeThreads / 32;
+constexpr int kWarpLanes = 64;
+constexpr int kNeePer = kWarpLanes / 32;
+// n_pad is a multiple of a packet's 256 lanes, so the chunks tile it
+static_assert(256 % kWarpLanes == 0 && (kNeePer == 1 || kNeePer == 2 || kNeePer == 4),
+              "a packet holds whole chunks, and a thread's lanes go out in one store");
+// The scene table up to the emissive triangles' rows (which a term reads
+// once, at a random row) is staged in shared memory where it fits (32 KB)
+constexpr int kStageMax = 8192;
+
+// The CTA's shared memory: each warp's queue of its chunk's live lanes,
+// then the staged table
+extern __shared__ float4 nee_sm[];  // float4: 16-byte aligned
+constexpr int kTabB = (2 * kNeeWarps * kWarpLanes + 15) / 16 * 16;
+
+__device__ __forceinline__ unsigned short* sm_queue(int warp) {
+  return reinterpret_cast<unsigned short*>(nee_sm) + warp * kWarpLanes;
+}
+__device__ __forceinline__ float* sm_tab() {
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(nee_sm) + kTabB);
+}
+
+static_assert(kTabB + 4 * kStageMax <= 48 * 1024, "a CTA's shared memory needs no opt-in");
+
+size_t nee_smem_bytes(int n_stage) { return (size_t)kTabB + sizeof(float) * (size_t)n_stage; }
+
+// The table the CTA reads (the staged one where it is)
+template <bool kStaged>
+__device__ __forceinline__ const float* nee_table(const NeeArgs& a) {
+  return kStaged ? sm_tab() : a.tab;
+}
+
+// Its light tables, the triangle rows from device memory
+template <bool kStaged>
+__device__ __forceinline__ Lights nee_lights(const NeeArgs& a) {
+  return lights_of(nee_table<kStaged>(a), a.tab + tri_rows_off(a.nee_off, a.n_lights, a.n_tri),
+                   a.nee_off, a.n_lights, a.n_tri);
+}
+
+// The scene table into shared memory, as far as the launch stages it
+__device__ __forceinline__ void stage_table(const NeeArgs& a) {
+  float* st = sm_tab();
+  for (int e = threadIdx.x; e < a.n_stage; e += kNeeThreads) st[e] = a.tab[e];
+}
+
+// kNeePer values, as one store
+template <class T, int N> struct Vec;
+template <class T> struct Vec<T, 1> { using type = T; };
+template <> struct Vec<unsigned char, 2> { using type = unsigned short; };
+template <> struct Vec<unsigned char, 4> { using type = unsigned int; };
+template <> struct Vec<float, 2> { using type = float2; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<int, 2> { using type = int2; };
+template <> struct Vec<int, 4> { using type = int4; };
+
+// Lanes first .. first + kNeePer - 1 closed in every term's region (mask 0,
+// the -BIG seed), one store each; pad lanes (past n) also take
+// packets._pack_rows' pad rows.  nee_term rewrites the lanes NEE lights.
+__device__ __forceinline__ void close_lanes(const NeeArgs& a, int first) {
+  const size_t rows_stride = (size_t)a.terms * a.n_pad;
+  const float pad[7] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
+  using Mask = Vec<unsigned char, kNeePer>::type;
+  using Cap = Vec<float, kNeePer>::type;
+  const Mask m{};
+  Cap c;
+  for (int k = 0; k < kNeePer; ++k) reinterpret_cast<float*>(&c)[k] = -kBig;
+  for (int t = 0; t < a.terms; ++t) {
+    const size_t j = (size_t)t * a.n_pad + first;
+    *reinterpret_cast<Mask*>(a.mask + j) = m;
+    if (a.rows == nullptr) continue;
+    *reinterpret_cast<Cap*>(a.rows + 7 * rows_stride + j) = c;
+    for (int k = max(a.n - first, 0); k < kNeePer; ++k) {
+      for (int r = 0; r < 7; ++r) a.rows[r * rows_stride + j + k] = pad[r];
     }
-    return;
   }
+}
+
+// NEE term t of diffuse lane i (p the shadow rays' origin):
+// integrator._nee_samples' term (the mesh light; each sphere light up to
+// kUnrollMax, else one sampled per lane), its shadow ray's sphere test and,
+// where no sphere occludes it, its mask, contribution and the any-hit
+// sweep's rows (the window's end as the t cap) over what close_lanes wrote
+template <bool kStaged>
+__device__ __forceinline__ void nee_term(const NeeArgs& a, int t, int i, V3 p, V3 nrm, V3 thr_alb,
+                                         uint32_t seed, int bounce) {
+  const float* tb = nee_table<kStaged>(a);
+  const Lights L = nee_lights<kStaged>(a);
+  Term tm;
+  if (t == 0 && a.n_tri > 0) {
+    tm = mesh_term(tb, a.mat_off, L, p, nrm, thr_alb, seed, bounce);
+  } else if (a.n_lights > kUnrollMax) {
+    float u = uniform(seed, bounce_counter(bounce, 4));
+    int li = min((int)(u * (float)a.n_lights), a.n_lights - 1);
+    tm = sphere_term(L, li, true, p, nrm, thr_alb, seed, bounce);
+  } else {
+    tm = sphere_term(L, t - (a.n_tri > 0 ? 1 : 0), false, p, nrm, thr_alb, seed, bounce);
+  }
+  if (!tm.active || sphere_occluded(tb, a.n_sph, p, tm.dir, tm.t_limit, tm.light)) return;
+  a.mask[(size_t)t * a.n_pad + i] = 1;
+  a.contrib[((size_t)t * 3 + 0) * a.n + i] = tm.contrib.x;
+  a.contrib[((size_t)t * 3 + 1) * a.n + i] = tm.contrib.y;
+  a.contrib[((size_t)t * 3 + 2) * a.n + i] = tm.contrib.z;
+  if (a.rows != nullptr) {
+    const size_t rows_stride = (size_t)a.terms * a.n_pad;
+    const float vals[8] = {p.x, p.y, p.z, tm.dir.x, tm.dir.y, tm.dir.z, 1e-4f, tm.t_limit};
+    for (int r = 0; r < 8; ++r) a.rows[r * rows_stride + (size_t)t * a.n_pad + i] = vals[r];
+  }
+}
+
+// Live lane i: the hit record, background, the first hit's normal and
+// depth, shading, the MIS-weighted emission, the lane state written back
+// and alive_next, as the body runs them; then, on a diffuse hit, each NEE
+// term (nee_term)
+template <bool kStaged>
+__device__ __forceinline__ void nee_lane(const NeeArgs& a, int i) {
+  const float* tb = nee_table<kStaged>(a);
   float* F = a.F;
   int* I = a.I;
+  const int n = a.n;
 #define FR(row) F[(size_t)(row) * n + i]
 #define IR(row) I[(size_t)(row) * n + i]
-  // a lane NEE samples nothing for: every term's mask and -BIG seed only
-  auto closed = [&](int t) {
-    a.mask[(size_t)t * n_pad + i] = 0;
-    if (a.rows != nullptr) a.rows[7 * rows_stride + (size_t)t * n_pad + i] = -kBig;
-  };
-  if (IR(I_ALIVE) == 0) {
-    for (int t = 0; t < terms; ++t) closed(t);
-    return;
-  }
   const uint32_t seed = (uint32_t)IR(I_SEED);
   const int bounce = IR(I_BOUNCE);
   const V3 ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
   const V3 rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
   const V3 col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
   V3 rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
-  const HitRec h = hit_record(a.rec, a.tab, a.obj_off, n, i, ro, rd);
+  const HitRec h = hit_record(a.rec, tb, a.obj_off, n, i, ro, rd);
 
-  if (!h.mask) rad = rad + col * background(a.tab + a.bg_off, rd);
+  if (!h.mask) rad = rad + col * background(tb + a.bg_off, rd);
   if (bounce == 0 && h.mask) {
     FR(F_NX) = h.normal.x;
     FR(F_NY) = h.normal.y;
     FR(F_NZ) = h.normal.z;
     FR(F_DEPTH) = h.t;
   }
-  const Lights L = lights_of(a.tab, a.nee_off, a.n_lights, a.n_tri);
   bool alive2 = false, diffuse = false;
   V3 albedo = v3(0.0f, 0.0f, 0.0f);
   if (h.mask) {
-    const Scatter sc = shade(a.tab, a.mat_off, h, rd, FR(F_TMIN), seed, bounce);
+    const Scatter sc = shade(tb, a.mat_off, h, rd, FR(F_TMIN), seed, bounce);
     if (sc.is_emis) {
       // integrator._weighted_emission: 1 after a specular scatter, else the
       // balance heuristic pdf_w / (pdf_w + pdf_light)
       const float pb = FR(F_PDFW);
       const float w = IR(I_SPEC) != 0
-          ? 1.0f : pb / clamp_min(pb + light_pdf_at_hit(L, h, ro, rd), 1e-20f);
+          ? 1.0f
+          : pb / clamp_min(pb + light_pdf_at_hit(nee_lights<kStaged>(a), h, ro, rd), 1e-20f);
       rad = rad + col * sc.emitted * w;
     }
     FR(F_ROX) = sc.ro.x;
@@ -503,41 +664,69 @@ __global__ void __launch_bounds__(kThreads) trip_nee_kernel(const NeeArgs a) {
   FR(F_RADY) = rad.y;
   FR(F_RADZ) = rad.z;
   a.alive_next[i] = alive2 ? 1 : 0;
-
-  // NEE's terms (integrator._nee_samples), each with its shadow ray's
-  // sphere test; the any-hit sweep and the sum come after
-  if (!diffuse) {
-    for (int t = 0; t < terms; ++t) closed(t);
-    return;
-  }
-  const V3 p = h.point + h.normal * 1e-4f;  // the scatter's offset
-  const V3 thr_alb = col * albedo;
-  for (int t = 0; t < terms; ++t) {
-    Term tm;
-    if (t == 0 && a.n_tri > 0) {
-      tm = mesh_term(a.tab, a.mat_off, L, p, h.normal, thr_alb, seed, bounce);
-    } else if (a.n_lights > kUnrollMax) {
-      float u = uniform(seed, bounce_counter(bounce, 4));
-      int li = min((int)(u * (float)a.n_lights), a.n_lights - 1);
-      tm = sphere_term(L, li, true, p, h.normal, thr_alb, seed, bounce);
-    } else {
-      tm = sphere_term(L, t - (a.n_tri > 0 ? 1 : 0), false, p, h.normal, thr_alb, seed, bounce);
-    }
-    if (!tm.active || sphere_occluded(a.tab, a.n_sph, p, tm.dir, tm.t_limit, tm.light)) {
-      closed(t);
-      continue;
-    }
-    a.mask[(size_t)t * n_pad + i] = 1;
-    a.contrib[((size_t)t * 3 + 0) * n + i] = tm.contrib.x;
-    a.contrib[((size_t)t * 3 + 1) * n + i] = tm.contrib.y;
-    a.contrib[((size_t)t * 3 + 2) * n + i] = tm.contrib.z;
-    if (a.rows != nullptr) {  // the any-hit sweep's rows, the window's end as the t cap
-      const float vals[8] = {p.x, p.y, p.z, tm.dir.x, tm.dir.y, tm.dir.z, 1e-4f, tm.t_limit};
-      for (int r = 0; r < 8; ++r) a.rows[r * rows_stride + (size_t)t * n_pad + i] = vals[r];
-    }
-  }
 #undef FR
 #undef IR
+  if (!diffuse) return;
+  const V3 p = h.point + h.normal * 1e-4f;  // the scatter's offset
+  const V3 thr_alb = col * albedo;
+  for (int t = 0; t < a.terms; ++t) {
+    nee_term<kStaged>(a, t, i, p, h.normal, thr_alb, seed, bounce);
+  }
+}
+
+// The CTA's share of the trip: the table staged, then each warp on its
+// own: chunk c of kWarpLanes lanes to warp c % (the grid's warps).  A
+// thread reads its kNeePer alive flags in one load and closes its lanes'
+// entries; the warp queues its live lanes in lane order and runs them one
+// a thread (nee_lane).  No barrier after the staging, so the warps of an
+// SM drift apart and one's loads overlap another's arithmetic; a dead or
+// pad lane costs its alive flag and its share of the closing stores.
+template <bool kStaged>
+__device__ __forceinline__ void nee_cta(const NeeArgs& a) {
+  if (kStaged) stage_table(a);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = gridDim.x * kNeeWarps;
+  const int chunks = a.n_pad / kWarpLanes;
+  const int* alive = a.I + (size_t)I_ALIVE * a.n;
+  const bool vec = ((uintptr_t)alive & (4 * kNeePer - 1)) == 0u;
+  unsigned short* queue = sm_queue(warp);
+  for (int c = blockIdx.x * kNeeWarps + warp; c < chunks; c += warps) {
+    const int lane0 = c * kWarpLanes, first = lane0 + lane * kNeePer;
+    int flags[kNeePer];
+    if (vec && first + kNeePer <= a.n) {
+      using Flags = Vec<int, kNeePer>::type;
+      const Flags f = *reinterpret_cast<const Flags*>(alive + first);
+      for (int k = 0; k < kNeePer; ++k) flags[k] = reinterpret_cast<const int*>(&f)[k];
+    } else {
+      for (int k = 0; k < kNeePer; ++k) flags[k] = first + k < a.n ? alive[first + k] : 0;
+    }
+    close_lanes(a, first);
+    // the live lanes' queue in lane order: the thread's count, then its
+    // exclusive sum over the warp
+    int own = 0;
+    for (int k = 0; k < kNeePer; ++k) own += flags[k] != 0 ? 1 : 0;
+    int incl = own;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    const int n_live = __shfl_sync(kFull, incl, 31);
+    int at = incl - own;
+    for (int k = 0; k < kNeePer; ++k) {
+      if (flags[k] != 0) queue[at++] = (unsigned short)(lane * kNeePer + k);
+    }
+    __syncwarp();
+    for (int j = lane; j < n_live; j += 32) nee_lane<kStaged>(a, lane0 + queue[j]);
+    __syncwarp();  // the queue is the next chunk's
+  }
+}
+
+// Two CTAs an SM: ~90 registers and no spill (at three, 80 registers
+// spill, which costs more than the third CTA gains)
+template <bool kStaged>
+__global__ void __launch_bounds__(kNeeThreads, 2) trip_nee_kernel(const NeeArgs a) {
+  nee_cta<kStaged>(a);
 }
 
 // --- trip_tail ---------------------------------------------------------------
@@ -767,6 +956,21 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
   if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(a.count, __popc(votes));
 }
 
+// One trip_nee launch (kStaged: with the staged table): as many CTAs as
+// the card holds at once, or one for each kNeeWarps chunks where there are
+// fewer chunks
+template <bool kStaged>
+cudaError_t launch_nee(const NeeArgs& a, size_t smem, cudaStream_t stream) {
+  const auto kernel = trip_nee_kernel<kStaged>;
+  static Resident resident;
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(resident, kernel, kNeeThreads, smem, &ctas);
+  if (err != cudaSuccess) return err;
+  const int need = (a.n_pad / kWarpLanes + kNeeWarps - 1) / kNeeWarps;
+  kernel<<<ctas < need ? ctas : need, kNeeThreads, smem, stream>>>(a);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -793,12 +997,17 @@ int tpupt_trip_nee(float* F, int* I, int n, int n_pad, const float* hrec, const 
                    int mat_off, int obj_off, int bg_off, int nee_off, int n_lights, int n_tri,
                    unsigned char* alive_next, float* contrib, unsigned char* mask, float* rows,
                    cudaStream_t stream) {
+  if (n_pad <= 0) return (int)cudaGetLastError();
+  const int head = tri_rows_off(nee_off, n_lights, n_tri);
+  const int n_stage = head <= kStageMax ? head : 0;
+  const int terms = nee_terms(n_lights, n_tri);
   NeeArgs a{F,       I,       n,       n_pad,    {hrec, hint, s_t, s_slot, s_nx, s_ny, s_nz, s_obj},
             tab,     n_sph,   mat_off, obj_off,  bg_off,     nee_off,  n_lights,  n_tri,
-            alive_next, contrib, mask, rows};
-  if (n_pad > 0) {
-    trip_nee_kernel<<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
-  }
+            alive_next, contrib, mask, rows, terms, n_stage};
+  const size_t smem = nee_smem_bytes(n_stage);
+  const cudaError_t err = n_stage > 0 ? launch_nee<true>(a, smem, stream)
+                                      : launch_nee<false>(a, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
