@@ -71,7 +71,7 @@ from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noq
 SIZE, BOUNCES, RR = 512, 4, 2
 SPP = {"cornell.json": 4, "cornell_area.json": 16, "many16": 2, "ico_light": 2}
 KERNEL = "trip_nee_kernel"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM5 HBM3 (the on-chip-measurement guide's table)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM5 HBM3 peak memory rate
 
 _BOUNDS = "__launch_bounds__(kNeeThreads, 2) trip_nee_kernel"
 _LANES = "constexpr int kWarpLanes = 64;"
