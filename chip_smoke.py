@@ -62,7 +62,10 @@ it fails before printing any result.  Its standard output ends with:
     kernels' (the forward render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
-    in a fit step and in each of phase 16's band renders,
+    in a fit step and in each of phase 16's band renders; for the trip
+    kernels, ``path_sums``: the bound summed over every trip or bounce of
+    the bunny render, the fwd+bwd step and the Cornell renders (phases 4a,
+    6, 10) beside the profiler's summed device ms and the share,
   * {"ok": true, "device": {...}} as the last line.
 """
 
@@ -354,15 +357,36 @@ def kernel_ms(restore, fn, reps):
 
 
 # float operations a lane needs, counted from trip_kernels.cu and rounded
-# up (sinf and cosf at 20 each): trip_head per sphere object tested;
-# trip_tail per live lane (the hit record, background or shading, roulette)
-# and per lane that folds a sample and restarts
-HEAD_SPHERE_FLOPS, TAIL_LIVE_FLOPS, TAIL_FOLD_FLOPS = 120, 320, 80
+# up (sinf and cosf at 20 each): trip_tail per live lane (the hit record,
+# background or shading, roulette) and per lane that folds a sample and
+# restarts
+TAIL_LIVE_FLOPS, TAIL_FOLD_FLOPS = 320, 80
 # trip_nee per live lane (the hit record, background or shading, the MIS
 # weight), per live lane and NEE term (a light sample, sinf and cosf at 20
 # each, its contribution), per live lane, term and sphere object (the
 # shadow ray's quadratic); the NEE tail per live lane and term (the sum)
 NEE_LIVE_FLOPS, NEE_TERM_FLOPS, NEE_SPHERE_FLOPS, TAIL_TERM_FLOPS = 340, 200, 60, 4
+# trip_head per live lane and sphere object, the quadratic (sphere_roots,
+# as a shadow ray's), and per live lane that a sphere wins, the winner's
+# world t and normal; the world t of a sphere in the window that a later
+# one beats is not counted (it needs this run's every candidate)
+HEAD_SPHERE_FLOPS, HEAD_WIN_FLOPS = NEE_SPHERE_FLOPS, 65
+
+
+def head_flops(plan_n_sph, live, wins):
+    """trip_head's float operations on a trip with ``live`` live lanes,
+    ``wins`` of them on a sphere."""
+    return live * plan_n_sph * HEAD_SPHERE_FLOPS + wins * HEAD_WIN_FLOPS
+
+
+def head_bytes(plan, live):
+    """trip_head's bytes on a trip with ``live`` live lanes (PERF.md
+    section 2's rule): alive of every lane; the ray rows and the record
+    (t, point, normal, hint) of each live lane; with a mesh, the seed t and
+    mask of every padded lane and the seven ray rows of each live and pad
+    lane."""
+    nbytes = plan.n * 4 + live * (7 * 4 + 8 * 4)
+    return nbytes + (plan.n_pad * 5 + (live + plan.n_pad - plan.n) * 7 * 4 if plan.mesh else 0)
 
 
 def trip_work(rec, I_after):
@@ -380,12 +404,7 @@ def trip_work(rec, I_after):
     fresh = int((ended_lanes & (I_after[keys.index("done")] == 0)).sum())
     mesh_hits = int(((rec["sweep"][1].reshape(-1)[:n] >= 0) & alive).sum()) if plan.mesh else 0
     n_sph = plan.tables[1]
-    # head (PERF.md section 2's rule): alive of every lane; the ray rows
-    # and the record (t, point, normal, hint) of each live lane; with a
-    # mesh, the seed t and mask of every padded lane and the seven ray rows
-    # of each live and pad lane
-    head_bytes = n * 4 + live * (7 * 4 + 8 * 4)
-    head_bytes += plan.n_pad * 5 + (live + plan.n_pad - n) * 7 * 4 if plan.mesh else 0
+    wins = int(((rec["hint"][:n] >= 0) & alive).sum())
     # tail: alive, bounce (and done) of every lane; the 17 state rows, the
     # segments and alive of each lane it touches; the record, seed (and
     # slot) of each live lane, the sweep's winner of each mesh hit; k, the
@@ -394,8 +413,8 @@ def trip_work(rec, I_after):
                   + live * (36 + (4 if plan.mesh else 0)) + mesh_hits * 20 + ended * 68
                   + fresh * 4 + 4)
     return dict(lanes=n, live=live, touched=touched, ended=ended, restarts=fresh,
-                mesh_hits=mesh_hits, head_bytes=head_bytes, tail_bytes=tail_bytes,
-                head_flops=live * n_sph * HEAD_SPHERE_FLOPS,
+                mesh_hits=mesh_hits, head_bytes=head_bytes(plan, live), tail_bytes=tail_bytes,
+                head_flops=head_flops(n_sph, live, wins),
                 tail_flops=live * TAIL_LIVE_FLOPS + ended * TAIL_FOLD_FLOPS)
 
 
@@ -446,6 +465,104 @@ def nee_trip_work(rec, I_after):
                 nee_flops=live * (NEE_LIVE_FLOPS + terms * (NEE_TERM_FLOPS
                                                             + n_sph * NEE_SPHERE_FLOPS)),
                 tail_flops=live * (terms * TAIL_TERM_FLOPS + 20) + ended * TAIL_FOLD_FLOPS)
+
+
+# float operations a lane of the differentiable trip needs, estimated from
+# diff_trip_kernels.cu (sinf and cosf at 20 each): a hit lane's forward
+# (refine, shading, roulette) and its backward (the forward again and the
+# hand VJP), a miss lane's either way
+DIFF_HIT_FLOPS, DIFF_BWD_HIT_FLOPS, DIFF_MISS_FLOPS = 340, 800, 60
+
+
+def diff_fwd_work(plan, code, b):
+    """diff_trip_fwd's bytes and float operations on bounce ``b`` from its
+    code residuals (each input read once, each output written once): every
+    lane's alive flag; a dead lane's code and slot residuals; a live
+    lane's hint, the sweep's slot (with a mesh), its segment count read and
+    written, alive written, its code and slot residuals; a miss reads its
+    direction, radiance and throughput, writes the radiance and its
+    direction and throughput residuals; a hit reads the state and its
+    seed, writes the state and its ten float residuals; a triangle hit
+    reads the sweep's object and payload; bounce 0's hits write the normal
+    and depth; the scene table; the count."""
+    n = plan.n
+    hit = code >= 0
+    n_live = int((code != diff_trip.DEAD).sum())
+    n_hit, n_tri = int(hit.sum()), int((hit & (code % 2 == 1)).sum())
+    n_miss = n_live - n_hit
+    first_hits = n_hit if b == 0 else 0
+    nbytes = (n * 4 + (n - n_live) * 8 + n_live * (4 + (4 if plan.mesh else 0) + 8 + 4 + 8)
+              + n_miss * (36 + 12 + 24) + n_hit * (52 + 4 + 52 + 40) + n_tri * 40
+              + first_hits * 16 + plan.tables.table.numel() * 4 + 4)
+    return nbytes, n_hit * DIFF_HIT_FLOPS + n_miss * DIFF_MISS_FLOPS
+
+
+def add_sum(sums, name, nbytes, flops):
+    """One launch's work into ``sums[name]``: its bytes, float operations
+    and bound (the larger of the two times, PERF.md section 2), summed."""
+    bound_ms, _ = bound(flops, nbytes)
+    e = sums.setdefault(name, dict(launches=0, bytes=0, flops=0, bound_ms=0.0))
+    e["launches"] += 1
+    e["bytes"] += nbytes
+    e["flops"] += flops
+    e["bound_ms"] += bound_ms
+
+
+def trip_sums(render):
+    """``render()`` with the work of every trip's kernels counted as it
+    runs, by trip_work's and nee_trip_work's rules, on the fly from each
+    trip's int state (no float state is kept): (render()'s result,
+    {kernel: launches, bytes, flops, bound ms, summed over the render}),
+    the NEE mode of trip_tail under "trip_tail"."""
+    sums, cur = {}, {}
+    head, nee, tail = trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail
+
+    def counting_head(plan, F, I, buf):
+        cur.update(I=I.clone(), sweep=None)
+        return head(plan, F, I, buf)
+
+    def counting_nee(plan, F, I, buf, sweep=None):
+        cur["sweep"] = sweep
+        return nee(plan, F, I, buf, sweep)
+
+    def counting_tail(plan, F, I, buf, sweep=None, occ=None):
+        out = tail(plan, F, I, buf, sweep, occ)
+        rec = dict(plan=plan, I=cur["I"], sweep=cur["sweep"] if plan.nee else sweep,
+                   hint=buf.hint, occ=occ,
+                   nee=dict(alive_next=buf.alive_next, nee_mask=buf.nee_mask))
+        w = trip_work(rec, I)
+        add_sum(sums, "trip_head", w["head_bytes"], w["head_flops"])
+        if plan.nee:
+            nw = nee_trip_work(rec, I)
+            add_sum(sums, "trip_nee", nw["nee_bytes"], nw["nee_flops"])
+            add_sum(sums, "trip_tail", nw["tail_bytes"], nw["tail_flops"])
+        else:
+            add_sum(sums, "trip_tail", w["tail_bytes"], w["tail_flops"])
+        return out
+
+    trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail = (
+        counting_head, counting_nee, counting_tail)
+    try:
+        out = render()
+    finally:
+        trip_kernel.trip_head, trip_kernel.trip_nee, trip_kernel.trip_tail = head, nee, tail
+    return out, sums
+
+
+def print_sums(label, sums, device_ms):
+    """Each kernel's summed bound beside the profiler's summed device ms
+    (``device_ms``: {kernel: ms}, None where not measured) and the share;
+    returns the entries with those added."""
+    out = {}
+    for name, e in sums.items():
+        dev = device_ms.get(name)
+        out[name] = dict(e, device_ms=dev, share_of_bound=e["bound_ms"] / dev if dev else None)
+        print(f"  {label}, {name} summed over the path: {e['launches']} launches, "
+              f"{e['bytes'] / 1e6:.1f} MB, {e['flops'] / 1e9:.4f} GFLOP, bound "
+              f"{e['bound_ms']:.4f} ms; device "
+              + (f"{dev:.4f} ms (profiler), {e['bound_ms'] / dev:.1%} of it" if dev else
+                 "ms not measured") + f"  [{smi}]")
+    return out
 
 
 def require_equal_state(name, got, want):
@@ -964,6 +1081,12 @@ for route in ("trip", "body"):
 print(f"the two routes' renders are bit-equal, {FWD_SEGMENTS} segments and {FWD_LAUNCHES} sweep "
       f"launches each; body/trip mean wall "
       f"{sum(route_walls['body']) / sum(route_walls['trip']):.2f}")
+# the trip kernels' work summed over every trip of the render, beside
+# their device ms summed over the profiled render
+_, sums_b = trip_sums(bunny_render)
+bunny_sums = print_sums("bunny.json render", sums_b, {
+    k: route_info["trip"][f"{k}_ms"] for k in ("trip_head", "trip_tail")})
+assert all(e["launches"] == FWD_LAUNCHES for e in bunny_sums.values()), bunny_sums
 
 # --- 5 -------------------------------------------------------------------
 phase("5 render parity, kernel vs twin: 256^2, 2 spp, 8 bounces")
@@ -1161,10 +1284,8 @@ del d_buf
 # hands it) against index_add_ (the body route's old call) and its twin.
 # Times on the device (``kernel_ms``), by events over the kernel's
 # wrapper, the twins'; work by what each lane's case needs (each input
-# read once, each output written once), float operations estimated from the source
-# (sinf and cosf at 20 each): a hit lane's forward (refine, shading,
-# roulette) and its backward (the forward again and the hand VJP)
-DIFF_HIT_FLOPS, DIFF_BWD_HIT_FLOPS, DIFF_MISS_FLOPS = 340, 800, 60
+# read once, each output written once; diff_fwd_work).  The same step also
+# sums trip_head's and diff_trip_fwd's work over all of its bounces
 rec_fwd, rec_bwd, first_dp = {}, {}, []
 
 
@@ -1203,13 +1324,27 @@ def check_slot_scatter(label, rows, slot, cot):
 fwd_w, bwd_w = diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd
 
 
+step_sums, head_w = {}, trip_kernel.trip_head
+
+
 def recording_fwd(dp, F, I, buf, sweep, b, res=None):
     if not first_dp:
         first_dp.append(dp)
     if dp is first_dp[0]:
         rec_fwd[b] = dict(dp=dp, F=F.clone(), I=I.clone(), hint=buf.hint.clone(),
                           sweep=None if sweep is None else tuple(o.clone() for o in sweep))
-    return fwd_w(dp, F, I, buf, sweep, b, res)
+    out = fwd_w(dp, F, I, buf, sweep, b, res)
+    add_sum(step_sums, "diff_trip_fwd", *diff_fwd_work(dp.trip, res.i[0], b))
+    return out
+
+
+def counting_head(plan, F, I, buf):
+    alive = I[trip_kernel.I_KEYS.index("alive")] != 0
+    out = head_w(plan, F, I, buf)
+    live, wins = int(alive.sum()), int(((buf.hint >= 0) & alive).sum())
+    add_sum(step_sums, "trip_head", head_bytes(plan, live),
+            head_flops(plan.tables.n_sph, live, wins))
+    return out
 
 
 def recording_bwd(dp, G, res, seed, b, gtab, g_slot=None):
@@ -1219,11 +1354,21 @@ def recording_bwd(dp, G, res, seed, b, gtab, g_slot=None):
 
 
 diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = recording_fwd, recording_bwd
+trip_kernel.trip_head = counting_head
 try:
     fwd_bwd()
 finally:
     diff_trip.diff_trip_fwd, diff_trip.diff_trip_bwd = fwd_w, bwd_w
+    trip_kernel.trip_head = head_w
 diff_dp = first_dp[0]
+# trip_head's and diff_trip_fwd's work summed over the step's bounces,
+# beside their device ms summed over the profiled step of this phase
+path_sums = {"bunny_render": bunny_sums, "bunny_step": print_sums(
+    "the fwd+bwd step", step_sums,
+    {k: route_prof["diff_trip"][f"{k}_ms"] for k in ("trip_head", "diff_trip_fwd")})}
+assert path_sums["bunny_step"]["diff_trip_fwd"]["launches"] == d_launches["diff_trip_fwd"], \
+    path_sums
+del step_sums
 LAST_BOUNCE = max(rec_fwd)
 assert sorted(rec_fwd) == sorted(rec_bwd) == list(range(LAST_BOUNCE + 1)), (rec_fwd, rec_bwd)
 for b in list(rec_fwd):
@@ -1329,19 +1474,8 @@ for b in (0, 2, LAST_BOUNCE):
     table_b = plan.tables.table.numel() * 4
     n_leaf = plan.tables.n_sph * 4 + plan.scene.materials.albedo.shape[0] * 8 + 6
     # what each lane's case needs, read once and written once (what a
-    # bounce leaves as it is moves nothing).  diff_trip_fwd: every lane's
-    # alive flag; a dead lane's code and slot residuals; a live lane's
-    # hint, the sweep's slot (with a mesh), its segment count read and
-    # written, alive written, its code and slot residuals; a miss reads its
-    # direction, radiance and throughput, writes the radiance and its
-    # direction and throughput residuals; a hit reads the state and its
-    # seed, writes the state and its ten float residuals; a triangle hit
-    # reads the sweep's object and payload; bounce 0's hits write the
-    # normal and depth; the scene table; the count
-    fwd_bytes = (n_l * 4 + (n_l - n_live) * 8 + n_live * (4 + (4 if plan.mesh else 0) + 8 + 4 + 8)
-                 + n_miss * (36 + 12 + 24) + n_hit * (52 + 4 + 52 + 40) + n_tri * 40
-                 + first_hits * 16 + table_b + 4)
-    fwd_flops = n_hit * DIFF_HIT_FLOPS + n_miss * DIFF_MISS_FLOPS
+    # bounce leaves as it is moves nothing)
+    fwd_bytes, fwd_flops = diff_fwd_work(plan, code, b)
     # diff_trip_bwd: every lane's code; a miss reads the cotangents of its
     # direction, radiance and throughput and its direction and throughput
     # residuals, writes the first and last of those cotangents; a hit reads
@@ -1705,6 +1839,14 @@ for name in NEE_SPP:
     print(f"{name}: the two routes' renders are bit-equal, {info['rays']} segments in "
           f"{info['trips']} trips each; body/trip mean wall "
           f"{sum(walls_r['body']) / sum(walls_r['trip']):.2f}")
+    # the trip kernels' work summed over every trip of the render, beside
+    # their device ms summed over the profiled render
+    _, sums_n = trip_sums(lambda: nee_render(name))
+    dev_n = info["routes_in_turns"]["trip"]["device_ms"]
+    path_sums[name.removesuffix(".json")] = info["path_sums"] = print_sums(
+        f"{name} render", sums_n, {k: dev_n[f"{k}_kernel"] for k in ("trip_head", "trip_nee",
+                                                                     "trip_tail")})
+    assert all(e["launches"] == info["trips"] for e in info["path_sums"].values()), info
 del nee_bufs
 
 # the trip kernels against their twins on recorded trips of each render
@@ -2894,6 +3036,7 @@ report = {
         harness_launches_per_call={k: v["launches_per_call"][name]
                                    for k, v in harness_info.items()},
         inputs={k: dict(v[name], work=v["work"]) for k, v in trip_checks.items()},
+        path_sums={k: v[name] for k, v in path_sums.items() if name in v},
     ) for name, replaces in (("trip_head", "tpupt/render/intersect.py:98"),
                              ("trip_tail", "tpupt/render/integrator.py:499"))] + [dict(
         # not Pallas in the JAX package: XLA fuses _bounce_body with NEE
@@ -2916,6 +3059,7 @@ report = {
                                    for k, v in harness_info.items()},
         inputs={k: dict(v["trip_nee"], work=v["work"]) for k, v in trip_checks.items()
                 if "trip_nee" in v},
+        path_sums={k: v["trip_nee"] for k, v in path_sums.items() if "trip_nee" in v},
     )] + [dict(
         # not Pallas in the JAX package: the differentiable trace_sample's
         # lax.scan over _bounce_body with refine_hit and its transpose
@@ -2933,6 +3077,7 @@ report = {
         harness_launches_per_call={k: v["launches_per_call"][name]
                                    for k, v in harness_info.items()},
         inputs={k: dict(v[name], work=v["work"]) for k, v in diff_checks.items()},
+        path_sums={k: v[name] for k, v in path_sums.items() if name in v},
     ) for name, replaces in (("diff_trip_fwd", "tpupt/render/integrator.py:499"),
                              ("diff_trip_bwd", "tpupt/render/integrator.py:804"))] + [dict(
         # not Pallas in the JAX package: _fetch_tri_rows' backward scatter,

@@ -7,9 +7,12 @@ no nvcc.
 As ``experiments/torch_trip_emulate.py`` does for the trip kernels, g++
 compiles the source against stubs of the CUDA built-ins, each launch a
 loop over the blocks and threads, one thread at a time.  What a warp or a
-CTA does together cannot run one thread at a time, so six device
+CTA does together cannot run one thread at a time, so seven device
 functions are replaced by plain loops and adds (``REDUCTIONS``): the
-backward's CTA loop (``cta_lanes``: the work counter, the chunk's scan and
+forward's CTA (``fwd_cta``: each thread's flags, codes and residual
+stores by the kernel's own ``fwd_scan``, then, where a lane is live, each
+thread's lanes in place by ``fwd_run``, the lanes left summed),
+the backward's CTA loop (``cta_lanes``: the work counter, the chunk's scan and
 its queues by case become one loop over the lanes in order, each live lane
 handed to ``case_warp`` as a warp of one), the leaf table's warp sums and
 CTA flush (``block_table_zero``, ``warp_add_keyed``,
@@ -74,6 +77,22 @@ REDUCTIONS = {
     }
   }
 }""",
+    "fwd_cta": """inline void fwd_cta(const FwdArgs& a, int* codes) {
+  if (threadIdx.x != 0) return;
+  const int base = blockIdx.x * kFwdLanes;
+  bool any = false;
+  for (unsigned t = 0; t < (unsigned)kFwdThreads; ++t) {
+    threadIdx.x = t;
+    any |= fwd_scan(a, base, codes);
+  }
+  if (!any) return;
+  int left = 0;
+  for (unsigned t = 0; t < (unsigned)kFwdThreads; ++t) {
+    threadIdx.x = t;
+    left += fwd_run(a, base, codes);
+  }
+  if (left != 0) atomicAdd(a.count, left);
+}""",
     "block_table_zero": "inline void block_table_zero(double*, int) {}",
     "warp_add_keyed": """template <int W>
 inline void warp_add_keyed(double* sm, int base, int key, const float (&v)[W]) {
@@ -110,8 +129,9 @@ def build(out_dir) -> ctypes.CDLL:
     src = emu.source("diff_trip_kernels.cu").replace("namespace {", STUBS + "\nnamespace {", 1)
     src = emu.replace_functions(src, REDUCTIONS)
     src = src.replace("extern __shared__ double sm[];", "static double sm[1 << 16] = {};")
-    # chunks of 16 lanes, so that a small sample's backward spans several
-    # CTAs, which hand the work counter on and leave it at 0
+    src = src.replace("__shared__ int codes[kFwdLanes];", "static int codes[kFwdLanes] = {};")
+    # the backward's chunks of 16 lanes, so that a small sample's bounce
+    # spans several CTAs, which hand the work counter on and leave it at 0
     assert src.count("constexpr int kChunk = 2048;") == 1
     src = src.replace("constexpr int kChunk = 2048;", "constexpr int kChunk = 16;")
     lib = emu.compile_emulation(emu.launches_as_loops(src, 3), out_dir, "diff_trip_emu")
@@ -173,13 +193,18 @@ def emulation(out_dir):
         torch.set_num_threads(threads)
 
 
-SCENES = ("spheres", "spheres+meshes", "bunny.json")
+SCENES = ("spheres", "spheres+meshes", "bunny.json", "nine spheres")
 
 
 def scene(name, tmp):
     """(scene, camera) of one of SCENES: spheres of the four materials,
     the same with two icosphere meshes (metal and glass), bunny.json (its
-    model generated under ``tmp``)."""
+    model generated under ``tmp``), tests/test_torch_trip.py's nine
+    spheres (an exact-t tie, a radius-1000 ground)."""
+    if name == "nine spheres":
+        import test_torch_trip
+
+        return test_torch_trip.nine_spheres()
     if name == "bunny.json":
         import shutil
 

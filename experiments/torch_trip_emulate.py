@@ -8,12 +8,13 @@ g++ compiles the source against stubs of the CUDA built-ins it uses (the
 launch qualifiers, the thread and block indices, the warp vote, the
 atomic, ``rsqrtf``): each launch ``k<<<grid, block, 0, stream>>>(args)``
 becomes a loop over the blocks and threads, and the warp vote counts one
-thread at a time.  What a CTA of ``trip_nee`` does together cannot run one
-thread at a time, so its CTA loop (``nee_cta``) is replaced by a plain one
-(``NEE_CTA``): each block's thread 0 runs the kernel's own staging, then
-its warps' chunks in turn, each thread's closing stores and each live
-lane (its hit, shading and NEE terms) in order; the warp's queue of live
-lanes runs only on the card.  The library goes into a temporary directory and is
+thread at a time.  What a CTA of ``trip_nee`` or ``trip_head`` does
+together cannot run one thread at a time, so their CTA loops (``nee_cta``,
+``head_cta``) are replaced by plain ones (``NEE_CTA``, ``HEAD_CTA``): each
+block's thread 0 runs the kernel's own staging, then its warps' chunks in
+turn, each thread's flags and closing stores and each live lane (its hit,
+shading and NEE terms; its sphere pass and rows) in order; the warp's
+queue of live lanes runs only on the card.  The library goes into a temporary directory and is
 called through ctypes on CPU tensors by the wrappers of
 ``tpupt_torch.render.trip_kernel`` (their CPU branch to the twins taken
 out).  Both sides then use correctly rounded float32 sqrt, rsqrt (as
@@ -163,20 +164,42 @@ def replace_functions(src, bodies):
 NEE_CTA = """template <bool kStaged>
 inline void nee_cta(const NeeArgs& a) {
   if (threadIdx.x != 0) return;
-  for (unsigned t = 0; t < (unsigned)kNeeThreads; ++t) {
+  for (unsigned t = 0; t < (unsigned)kGridThreads; ++t) {
     threadIdx.x = t;
-    if (kStaged) stage_table(a);
+    if (kStaged) stage_table(a.tab, a.n_stage);
   }
   threadIdx.x = 0;
-  const int warps = gridDim.x * kNeeWarps, chunks = a.n_pad / kWarpLanes;
-  for (int w = 0; w < kNeeWarps; ++w) {
-    for (int c = blockIdx.x * kNeeWarps + w; c < chunks; c += warps) {
+  const int warps = gridDim.x * kGridWarps, chunks = a.n_pad / kWarpLanes;
+  for (int w = 0; w < kGridWarps; ++w) {
+    for (int c = blockIdx.x * kGridWarps + w; c < chunks; c += warps) {
       const int lane0 = c * kWarpLanes;
-      for (int t = 0; t < 32; ++t) close_lanes(a, lane0 + t * kNeePer);
+      for (int t = 0; t < 32; ++t) close_lanes(a, lane0 + t * kLanePer);
       for (int l = 0; l < kWarpLanes && lane0 + l < a.n; ++l) {
         if (a.I[(size_t)I_ALIVE * a.n + lane0 + l] != 0) nee_lane<kStaged>(a, lane0 + l);
       }
     }
+  }
+}"""
+# trip_head's CTA the same way: each thread's flags, mask and seed stores
+# (head_flags), then, where one lane is live, each thread's staging and its
+# live lanes in place (head_run)
+HEAD_CTA = """template <bool kStaged>
+inline void head_cta(const HeadArgs& a) {
+  if (threadIdx.x != 0) return;
+  unsigned char* live = reinterpret_cast<unsigned char*>(grid_sm);
+  const int base = blockIdx.x * kHeadLanes;
+  bool any = false;
+  for (unsigned t = 0; t < (unsigned)kThreads; ++t) {
+    threadIdx.x = t;
+    any |= head_flags(a, base, live);
+  }
+  for (unsigned t = 0; any && kStaged && t < (unsigned)kThreads; ++t) {
+    threadIdx.x = t;
+    stage_table(a.tab, a.n_stage);
+  }
+  for (unsigned t = 0; any && t < (unsigned)kThreads; ++t) {
+    threadIdx.x = t;
+    head_run<kStaged>(a, base, live);
   }
 }"""
 # an entry the tests call: the CDF search alone
@@ -198,11 +221,11 @@ def build(out_dir, subs=()) -> ctypes.CDLL:
     """The emulation library of trip_kernels.cu with each (old, new) of
     ``subs`` applied (each must match once), its entries declared as
     ``kernels.bind`` declares them."""
-    src = replace_functions(source("trip_kernels.cu"), {"nee_cta": NEE_CTA})
+    src = replace_functions(source("trip_kernels.cu"), {"nee_cta": NEE_CTA, "head_cta": HEAD_CTA})
     for old, new in subs:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
-    src = src.replace("extern __shared__ float4 nee_sm[];", "float4 nee_sm[1 << 16] = {};")
+    src = src.replace("extern __shared__ float4 grid_sm[];", "float4 grid_sm[1 << 16] = {};")
     lib = compile_emulation(launches_as_loops(src, 4) + EXPORTS, out_dir, "trip_emu")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.emu_cdf_index.argtypes = [P, I, ctypes.c_float]

@@ -11,8 +11,8 @@ tree under ``build/``), each labelled by its directory's name, whose
 so the shipped wrapper calls any of the libraries.
 ``--variants`` adds libraries built from the shipped sources with the
 substitutions of ``VARIANTS`` (a design choice each: no staged table, no
-queue of a warp's live lanes, neither, the shadow test's divides on every
-sphere, the warp's chunk, the launch bounds) or
+queue of a warp's live lanes, neither, the warp's chunk, the launch
+bounds) or
 of ``DIAGNOSTIC`` (a part of the work dropped: timed, not compared).
 
 The inputs are phase 10's of ``chip_smoke.py``: cornell.json (4 spp),
@@ -73,12 +73,12 @@ SPP = {"cornell.json": 4, "cornell_area.json": 16, "many16": 2, "ico_light": 2}
 KERNEL = "trip_nee_kernel"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM5 HBM3 peak memory rate
 
-_BOUNDS = "__launch_bounds__(kNeeThreads, 2) trip_nee_kernel"
+_BOUNDS = "__launch_bounds__(kGridThreads, 2) trip_nee_kernel"
 _LANES = "constexpr int kWarpLanes = 64;"
 _STAGE = ("constexpr int kStageMax = 8192;", "constexpr int kStageMax = 0;")
 _QUEUE = (
     "    for (int j = lane; j < n_live; j += 32) nee_lane<kStaged>(a, lane0 + queue[j]);",
-    "    for (int k = 0; k < kNeePer; ++k) {\n"
+    "    for (int k = 0; k < kLanePer; ++k) {\n"
     "      const int i = lane0 + lane + 32 * k;\n"
     "      if (i < a.n && alive[i] != 0) nee_lane<kStaged>(a, i);\n    }")
 VARIANTS = {
@@ -89,15 +89,11 @@ VARIANTS = {
     "no_queue": [_QUEUE],
     # the persistent grid alone: neither the staged table nor the queue
     "grid_alone": [_STAGE, _QUEUE],
-    # the shadow test by sphere_roots, which divides whether or not a root exists
-    "roots": [("    if ((int)s[28] != exclude && sphere_blocks(s, p, dir, t_limit)) return true;",
-               "    float t_obj;\n    V3 oo, od;\n    if ((int)s[28] != exclude && "
-               "sphere_roots(s, p, dir, 1e-4f, t_limit, &t_obj, &oo, &od)) return true;")],
     "lanes32": [(_LANES, _LANES.replace("64", "32"))],
     "lanes128": [(_LANES, _LANES.replace("64", "128"))],
-    "lb1": [(_BOUNDS, _BOUNDS.replace("(kNeeThreads, 2)", "(kNeeThreads, 1)"))],
-    "lb3": [(_BOUNDS, _BOUNDS.replace("(kNeeThreads, 2)", "(kNeeThreads, 3)"))],
-    "lb_default": [(_BOUNDS, _BOUNDS.replace("(kNeeThreads, 2)", "(kNeeThreads)"))],
+    "lb1": [(_BOUNDS, _BOUNDS.replace("(kGridThreads, 2)", "(kGridThreads, 1)"))],
+    "lb3": [(_BOUNDS, _BOUNDS.replace("(kGridThreads, 2)", "(kGridThreads, 3)"))],
+    "lb_default": [(_BOUNDS, _BOUNDS.replace("(kGridThreads, 2)", "(kGridThreads)"))],
 }
 # where the time goes: no NEE term is sampled (the hit, shading, emission only)
 DIAGNOSTIC = {"no_terms": [(

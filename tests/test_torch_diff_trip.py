@@ -47,6 +47,7 @@ from tpupt.scene.procedural import icosphere as jax_icosphere
 
 from conftest import S, T
 from test_torch_scene import port_scene
+from test_torch_trip import nine_spheres_desc
 from tpupt_torch import atrous_denoise, extract_params, params_from_numpy, with_params
 from tpupt_torch.core.camera import make_camera
 from tpupt_torch.cpu_ref.renderer import intersect_scene_ids_brute
@@ -245,6 +246,45 @@ def test_route_gradients_match_jax(jax_refs, name):
         want = ref["grads"][k]
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()), err_msg=k)
+
+
+def test_route_gradients_match_jax_nine_spheres():
+    """tests/test_torch_trip.py's nine spheres (an exact-t tie, a
+    radius-1000 ground) at 16^2, 2 spp, 4 bounces on the route against the
+    JAX package's ``value_and_grad``: the rays equal, the loss and every
+    leaf's gradient at the tolerances above, the two coincident spheres'
+    (primitives 1 and 2) as their sum.  Which of the two a pixel's path
+    hits turns on the last bit of each package's rsqrt (the object ray's
+    normalize decides whether the later sphere's root lies in the window
+    the earlier one's world t closes), so the packages split the pair's
+    gradient differently while its sum, the gradient of the geometry both
+    share, agrees; the card and emulation tests hold the split itself to
+    the port's twins."""
+    jscene = nine_spheres_desc(JaxSceneDescription).build()
+
+    def loss_fn(p):
+        buf, rays = jax_render_image(jax_with_params(jscene, p), jax_make_camera(vfov=np.pi / 2),
+                                     JW, JH, 2, max_bounces=4, differentiable=True)
+        return jnp.sum(buf.color ** 2), rays
+
+    jp = jax_extract_params(jscene)
+    (jl, jr), jg = jax.value_and_grad(loss_fn, has_aux=True)(jp)
+    scene = port_scene(jscene)
+    assert render_route(scene, True) == "diff_trip" and len(scene.s_obj_kind) == 9
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    buf, rays = render_image(with_params(scene, params), _cam(), JW, JH, 2, max_bounces=4,
+                             differentiable=True)
+    loss = (buf.color ** 2).sum()
+    grads = torch.autograd.grad(loss, [_get(params, k) for k in LEAVES], allow_unused=True,
+                                materialize_grads=True)
+    assert int(rays) == int(jr)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-4, atol=1e-5)
+    for k, g in zip(LEAVES, grads):
+        got, want = g.numpy(), np.asarray(_get(jg, k))
+        if k in ("sphere_center", "sphere_radius"):
+            got, want = (np.concatenate([x[:1], x[1:2] + x[2:3], x[3:]]) for x in (got, want))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()),
+                                   err_msg=k)
 
 
 # --- (d) the route's choice ----------------------------------------------------

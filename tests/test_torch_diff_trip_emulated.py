@@ -7,9 +7,13 @@ of the CUDA built-ins (a launch is a loop over its blocks and threads, one
 thread at a time) with what a warp or a CTA does together as plain loops
 and adds: the backward's queues by case become one loop over the lanes in
 order, the leaf table's warp sums and CTA flush and the slot table's
-scatter plain adds.  So each case's per-lane arithmetic (miss, sphere hit,
-triangle hit), the layout and the control flow around them are checked on
-every run of the suite; the queues and the reductions only on the card
+scatter plain adds; the forward's CTA loop likewise (each thread's codes
+and residual stores by the kernel's own ``fwd_codes``, then the live lanes
+in order).  So each case's per-lane arithmetic (miss, sphere hit, triangle
+hit), the layout and the control flow around them are checked on every
+run of the suite, the forward also on dense, sparse and all-dead states at
+a lane count that fills no CTA, with roulette and without; the queues and
+the reductions only on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).  Both sides use
 correctly rounded float32 sqrt, rsqrt, sin and cos (torch's CPU functions
 and the C library's differ in the last bit).
@@ -29,6 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "experiments"))
 
 import torch_diff_trip_emulate as emu  # noqa: E402
+import test_torch_trip as trip  # noqa: E402
 
 from tpupt_torch.render import diff_trip  # noqa: E402
 from tpupt_torch.render.integrator import render_route  # noqa: E402
@@ -70,9 +75,31 @@ def test_emulated_source_equals_twins(emulated, assets, name, rr_start):
 
     r = emu.compare(scene, cam, SIZE, rr_start, dict(emulated, diff_trip_bwd=checked_bwd))
     assert all(r["forward_equal"].values()), r["forward_equal"]
-    assert r["slot_tables"] == (0 if name == "spheres" else 2), r["slot_tables"]
+    assert r["slot_tables"] == (0 if name in ("spheres", "nine spheres") else 2), r["slot_tables"]
     assert r["ok"], r["gaps"]
     assert counters and all(c and all(v == [0] for v in c) for c in counters), counters
+
+
+FWD_CASES = {"dense, bounce 0": ("dense", 0), "sparse, bounce 2": ("sparse", 2),
+             "all dead": ("all_dead", 2)}
+
+
+@pytest.mark.parametrize("rr_start", [None, 1])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+@pytest.mark.parametrize("name", list(trip.FREE_SCENES))
+def test_emulated_fwd_equals_twin_on_states(emulated, name, case, rr_start):
+    """The emulated diff_trip_fwd against ``diff_trip_fwd_plain`` on every
+    output (the lane state, the residuals it writes and the 7s it leaves,
+    the lanes left), every lane, one in 41 or none alive, at 23 x 7 lanes,
+    which fill no CTA and no two-lane access: nine spheres with an exact-t
+    tie (no mesh) and spheres beside a mesh (the payload sweep's
+    triangles); without roulette and with it from bounce 1."""
+    state, bounce = FWD_CASES[case]
+    args = trip.diff_inputs(name, state, bounce, rr_start=rr_start)
+    got = trip.fwd_run(emulated["diff_trip_fwd"], *args, bounce)
+    want = trip.fwd_run(diff_trip.diff_trip_fwd_plain, *args, bounce)
+    for label, a, b in zip(("F", "I", "res_f", "res_i", "count"), got, want):
+        assert torch.equal(a, b), label
 
 
 @pytest.mark.parametrize("layout", ["(N, 9), slots aligned", "(9, N) transposed, slots unaligned"])

@@ -647,6 +647,54 @@ def test_diff_trip_route_equals_body_route_on_card(cuda_device, rr_start):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rr_start", [None, 1])
+def test_diff_trip_route_equals_body_route_nine_spheres(cuda_device, rr_start):
+    """tests/test_torch_trip.py's nine spheres (an exact-t tie, a
+    radius-1000 ground, no mesh) on the differentiable trip against the
+    body route: the forward bit-equal, every gradient within 1e-5 of its
+    leaf's max |grad| (rtol 1e-5)."""
+    from test_torch_trip import nine_spheres
+    from tpupt_torch.render import diff_trip
+
+    scene, cam = nine_spheres(device=cuda_device)
+    before = diff_trip.launch_counts()["diff_trip_fwd"]
+    bk, rk, gk = _diff_step(scene, cam, rr_start=rr_start)
+    assert diff_trip.launch_counts()["diff_trip_fwd"] > before
+    bp, rp, gp = _diff_step(scene, cam, functools.partial(intersect_scene_ids_diff), rr_start)
+    torch.cuda.synchronize()
+    assert rk == rp > 48 * 40 * 2
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(bk, key), getattr(bp, key)), key
+    for a, b in zip(gk, gp):
+        assert bool(torch.isfinite(a).all())
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense, bounce 0", "sparse, bounce 2", "all dead"])
+@pytest.mark.parametrize("name", ["nine_spheres", "spheres_mesh"])
+def test_diff_trip_fwd_equals_twin_on_states(cuda_device, name, case):
+    """diff_trip_fwd against its twin on every output (the lane state, the
+    residuals it writes and the 7s it leaves, the lanes left): every lane,
+    one in 41 or none alive, at 23 x 7 lanes, which fill no chunk, no
+    four-lane load and no packet (the sweep's pad lanes), on nine spheres
+    with an exact-t tie and on spheres beside a mesh."""
+    from test_torch_trip import diff_inputs, fwd_run
+    from tpupt_torch.render import diff_trip
+
+    state, bounce = {"dense, bounce 0": ("dense", 0), "sparse, bounce 2": ("sparse", 2),
+                     "all dead": ("all_dead", 2)}[case]
+    args = diff_inputs(name, state, bounce, device=cuda_device)
+    before = diff_trip.launch_counts()["diff_trip_fwd"]
+    got = fwd_run(diff_trip.diff_trip_fwd, *args, bounce)
+    want = fwd_run(diff_trip.diff_trip_fwd_plain, *args, bounce)
+    torch.cuda.synchronize()
+    assert diff_trip.launch_counts()["diff_trip_fwd"] == before + 1
+    for label, a, b in zip(("F", "I", "res_f", "res_i", "count"), got, want):
+        assert torch.equal(a, b), label
+
+
+@pytest.mark.cuda
 def test_diff_trip_kernels_equal_twins(cuda_device, monkeypatch):
     """diff_trip_fwd and diff_trip_bwd against their twins on every bounce
     of a render: the forward's state, residuals and count exact; the

@@ -3,15 +3,20 @@ compiled by g++ and run on the CPU, against the body route.
 
 ``experiments/torch_trip_emulate.py`` builds the source against stubs of
 the CUDA built-ins (a launch is a loop over its blocks and threads, one
-thread at a time), with ``trip_nee``'s CTA loop as a plain loop: each
-block's thread 0 runs the kernel's own table staging, then its warps'
-chunks in turn: each thread's stores that close its lanes' NEE terms, then
-each live lane (the hit record, shading, the MIS-weighted emission, then
-each NEE term: the light sample, the sphere test, the contribution and
-shadow rows), in order.  So the per-lane and per-term arithmetic, the
-layouts, the staged table (and the table read from device memory), the closing
-stores and the CDF search are checked on every run of the suite; the
-warps' queues of live lanes only on the card
+thread at a time), with ``trip_nee``'s and ``trip_head``'s CTA loops as
+plain loops: each block's thread 0 runs the kernel's own table staging,
+then its warps' chunks in turn: each thread's flags and the stores that
+close its lanes (their NEE terms; the sweep's mask and seeds, the pad
+lanes), then each live lane (the hit record, shading, the MIS-weighted
+emission, then each NEE term: the light sample, the sphere test, the
+contribution and shadow rows; the lazy sphere pass, the record and the
+sweep's rows), in order.  So the per-lane and per-term arithmetic, the
+layouts, the staged table (and the table read from device memory), the
+closing stores and the CDF search are checked on every run of the suite,
+on the emitter scenes and on two emitter-free ones (nine spheres with an
+exact-t tie and a radius-1000 ground; spheres beside a mesh), with
+trip_head held to its twin on dense, sparse and all-dead states at a lane
+count that fills no chunk; the warps' queues of live lanes only on the card
 (``tests/test_torch_trip_nee.py``, ``chip_smoke.py``).  Both sides use correctly rounded float32 sqrt, rsqrt,
 sin and cos (torch's CPU functions and the C library's differ in the last
 bit).
@@ -33,6 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "experiments"))
 
 import torch_trip_emulate as emu  # noqa: E402
+import test_torch_trip as trip  # noqa: E402
 import test_torch_trip_nee as nee  # noqa: E402
 
 from tpupt_torch.render import trip_kernel  # noqa: E402
@@ -98,6 +104,40 @@ def test_emulated_trip_route_equals_body_route(emulated, monkeypatch, name, mode
         assert torch.equal(getattr(got[0], key), getattr(want[0], key)), key
     assert float(got[0].color.max()) > 0.05  # the emitters light the scene
     assert calls
+
+
+@pytest.mark.parametrize("state", list(trip.STATES))
+@pytest.mark.parametrize("name", list(trip.FREE_SCENES))
+def test_emulated_trip_head_equals_twin(emulated, name, state):
+    """The emulated trip_head against ``trip_head_plain`` on every output
+    (the record, hint, the packed rows and mask with their pad lanes, and
+    what a lane that is not live leaves), every lane, one in 41 or none
+    alive, at 23 x 7 lanes: nine spheres with an exact-t tie (no mesh) and
+    spheres beside a mesh."""
+    wrappers, _ = emulated
+    plan, F, I = trip.head_inputs(name, state)
+    trip.assert_head_equal(trip.head_run(wrappers["trip_head"], plan, F, I),
+                           trip.head_run(trip_kernel.trip_head_plain, plan, F, I))
+
+
+@pytest.mark.parametrize("name", list(trip.FREE_SCENES))
+def test_emulated_emitter_free_route_equals_body_route(emulated, monkeypatch, name):
+    """The trip route through the emulated trip_head and trip_tail (23 x
+    7, 2 spp, 4 bounces, roulette from bounce 2, chained) against the body
+    route: colour, normal, depth and segments bit-equal."""
+    wrappers, _ = emulated
+    scene, cam = trip.FREE_SCENES[name]()
+    assert not scene.has_nee and render_route(scene) == "trip"
+    kw = dict(spp=2, max_bounces=4, rr_start=2)
+    for k in ("trip_head", "trip_tail"):
+        monkeypatch.setattr(trip_kernel, k, wrappers[k])
+    got = render_image(scene, cam, trip.W_ODD, trip.H_ODD, **kw)
+    monkeypatch.undo()
+    want = render_image(scene, cam, trip.W_ODD, trip.H_ODD,
+                        intersect_fn=functools.partial(intersect_scene_ids), **kw)
+    assert int(got[1]) == int(want[1]) > trip.W_ODD * trip.H_ODD
+    for key in ("color", "normal", "depth"):
+        assert torch.equal(getattr(got[0], key), getattr(want[0], key)), key
 
 
 def _cdf_cases():

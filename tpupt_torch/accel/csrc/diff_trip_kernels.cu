@@ -16,9 +16,9 @@
 //
 //   trip_head (trip_kernels.cu): the sphere pass and the sweep's rows;
 //   treelet_closest_hit(payload=True) (treelet_kernels.cu), with a mesh;
-//   diff_trip_fwd  one thread a lane: refine_hit's closed form (the sphere
-//                  branch through the object's matrices, the triangle
-//                  branch on the payload's p0, e1, e2), then the body
+//   diff_trip_fwd  refine_hit's closed form (the sphere branch through the
+//                  object's matrices, the triangle branch on the payload's
+//                  p0, e1, e2) on each live lane, then the body
 //                  without emitters (background on a miss, the first
 //                  bounce's normal and depth, all four BSDF lobes,
 //                  emission, roulette), the lane state updated in place;
@@ -26,7 +26,7 @@
 //                  throughput it found, its hit's object and slot: 48 bytes
 //                  a lane that hits, 32 one that misses, which keeps only
 //                  its direction and throughput) and counts the lanes left
-//                  with one atomic a warp;
+//                  with one atomic a warp (a persistent grid: see below);
 //
 // and the backward pass, one bounce at a time in reverse:
 //
@@ -66,16 +66,15 @@
 // a hit lane, plus the winner's table row and its slot row's gradient on a
 // triangle and the normal's and depth's cotangents on bounce 0.  That is
 // for a few hundred float operations a lane (~800 a hit backward), well
-// under the 67 TFLOP/s FP32 rate's ~20 operations a byte.  The forward runs
-// one thread a lane over SoA rows, every access coalesced, the small tables
-// read by every thread at one address.
+// under the 67 TFLOP/s FP32 rate's ~20 operations a byte.
 //
-// The backward is shaped by what held a thread-a-lane design back: a
+// Both kernels are shaped by what held a thread-a-lane design back: a
 // bounce's live lanes thin out (5% of them on bunny's bounce 2, a few
 // hundred of a million on the last), the three cases (miss, sphere,
 // triangle) lie interleaved in pixel order, so a warp ran every branch one
-// after another, a hit lane keeps ~125 registers live (two 256-thread CTAs
-// an SM), and the leaf sums meet in a few dozen words.  So:
+// after another, a sphere hit found its table row by a linear search, a
+// backward hit lane keeps ~125 registers live (two 256-thread CTAs an SM),
+// and the leaf sums meet in a few dozen words.  So, in the backward:
 //   - a persistent grid, as many CTAs as the card holds at once, takes
 //     chunks of 2,048 lanes from a work counter in device memory, which the
 //     launch's last take sets back to 0 (no host read, and no memset: one
@@ -99,6 +98,23 @@
 //     in every lane) before one lane of each run makes the row's 9 atomics:
 //     no (9, N) buffer between two kernels, and no second launch; a slot
 //     past the table fails the launch, as it does in slot_scatter.
+// The forward (diff_trip_fwd) is lighter a lane, and there the backward's
+// design lost (PERF.md §6): a persistent grid over chunks taken by
+// grid index ran as long as its most loaded warp on a bounce of uneven
+// chunks, a work counter's one atomic a chunk bound a sparse bounce, and
+// the queues by case saved less divergence than their bookkeeping and
+// registers cost.  So: a grid over every lane in CTAs of 512
+// lanes (the hardware hands them out as SMs free up); a thread reads its
+// two lanes' flags in one 8-byte load (their hints, slots and objects only
+// where one of them is alive) and writes both lanes' code and slot
+// residuals 8 bytes a row, so a dead lane costs 12 bytes, and a CTA with no
+// live lane is done after one barrier; otherwise each thread runs its lanes
+// in place (lanes t and t + 256 of the CTA, a warp's lanes neighbours),
+// every load a lane needs issued before any is used (the payload's nine
+// rows on a triangle only); the lanes left are summed a warp, one atomic a
+// warp.  The scene table is read from device memory (staging it, with an
+// object-to-row map in place of sphere_row's search, timed equal on the
+// BASELINE step: PERF.md §6).
 // slot_scatter, bound by its 4-byte slot a lane and a triangle lane's row:
 // a persistent grid, a thread's four slots read in one 16-byte load and
 // passed round the warp so that each round holds 32 neighbouring lanes, a
@@ -236,14 +252,15 @@ struct Bounce {
   float m1, p_raw, inv_p;
 };
 
+// (row: the sphere's table row, read on a sphere hit only)
 __device__ __forceinline__ void bounce_forward(const Scene& sc, int bounce, int rr_start, V3 ro,
                                                V3 rd, float t_min, V3 col, uint32_t seed, int code,
-                                               V3 p0, V3 e1, V3 e2, Bounce& B) {
+                                               int row, V3 p0, V3 e1, V3 e2, Bounce& B) {
   const int obj = code >> 1;
   if (code & 1) {
     refine_triangle(ro, rd, p0, e1, e2, B.r);
   } else {
-    refine_sphere(sc.tab, sphere_row(sc.tab, sc.n_sph, obj), ro, rd, t_min, B.r);
+    refine_sphere(sc.tab, row, ro, rd, t_min, B.r);
   }
   HitRec h;
   h.mask = true;
@@ -288,105 +305,200 @@ struct FwdArgs {
   int* count;
 };
 
-__global__ void __launch_bounds__(kThreads) diff_trip_fwd_kernel(const FwdArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+// A grid over every lane in CTAs of kFwdLanes lanes, kFwdPer a thread,
+// whose flags, hints and slots it reads in one load a row
+constexpr int kFwdThreads = kThreads;
+constexpr int kFwdPer = 2;
+constexpr int kFwdLanes = kFwdThreads * kFwdPer;
+
+// The alive flags of lanes first .. first + kFwdPer - 1 (0 past n)
+__device__ __forceinline__ void fwd_flags(const FwdArgs& a, int first, int (&alive)[kFwdPer]) {
+  load_lanes(a.I + (size_t)I_ALIVE * a.n, first, a.n, 0, alive);
+}
+
+// The codes of lanes first .. first + kFwdPer - 1 from their alive flags:
+// kDead where a lane is not alive (or lies past n), else
+// intersect_scene_ids_diff's winner (the sweep's object * 2 + 1 where a
+// triangle won, else the sphere pass's object * 2, else kMiss); their code
+// and slot residuals written, every lane's, in one store a row.  The hints
+// and the sweep's slots and objects are read only where one of the lanes is
+// alive.
+__device__ __forceinline__ void fwd_codes(const FwdArgs& a, int first,
+                                          const int (&alive)[kFwdPer], int (&code)[kFwdPer]) {
   const int n = a.n;
-  bool left = false;  // alive after the bounce: counted per warp
-  if (i < n) {
-    float* F = a.F;
-    int* I = a.I;
-#define FR(row) F[(size_t)(row) * n + i]
-#define IR(row) I[(size_t)(row) * n + i]
-    if (IR(I_ALIVE) == 0) {
-      if (a.res_i != nullptr) {
-        a.res_i[(size_t)R_CODE * n + i] = kDead;
-        a.res_i[(size_t)R_SLOT * n + i] = -1;
-      }
-    } else {
-      const V3 rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
-      const V3 rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
-      const V3 col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
-      // intersect_scene_ids_diff's ids: the sphere pass's winner, replaced
-      // by the sweep's where a triangle won
-      const int slot = a.s_slot != nullptr ? a.s_slot[i] : -1;
-      const int hint = a.hint[i];
-      int code = kMiss;
-      if (slot >= 0) {
-        code = max((int)a.s_obj[i], 0) * 2 + 1;
-      } else if (hint >= 0) {
-        code = (hint >> 1) * 2;
-      }
-      if (a.res_i != nullptr) {
-        a.res_i[(size_t)R_CODE * n + i] = code;
-        a.res_i[(size_t)R_SLOT * n + i] = slot;
-      }
-      if (code == kMiss) {
-        // the path leaves with the background; its ray and throughput stay
-        // as they are, and the backward reads only rd and col again
-        const V3 out = rad + col * background(a.scene.tab + a.scene.bg_off, rd);
-        FR(F_RADX) = out.x;
-        FR(F_RADY) = out.y;
-        FR(F_RADZ) = out.z;
-        if (a.res_f != nullptr) {
-          const float vals[6] = {rd.x, rd.y, rd.z, col.x, col.y, col.z};
-          for (int r = 0; r < 3; ++r) {
-            a.res_f[(size_t)(R_RDX + r) * n + i] = vals[r];
-            a.res_f[(size_t)(R_COLX + r) * n + i] = vals[3 + r];
-          }
-        }
-      } else {
-        const V3 ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
-        const float t_min = FR(F_TMIN);
-        if (a.res_f != nullptr) {
-          const float vals[10] = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, t_min, col.x, col.y, col.z};
-          for (int r = 0; r < 10; ++r) a.res_f[(size_t)r * n + i] = vals[r];
-        }
-        V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
-        if (slot >= 0) {
-          p0 = v3(a.pay[0][i], a.pay[1][i], a.pay[2][i]);
-          e1 = v3(a.pay[3][i], a.pay[4][i], a.pay[5][i]);
-          e2 = v3(a.pay[6][i], a.pay[7][i], a.pay[8][i]);
-        }
-        Bounce B;
-        bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, (uint32_t)IR(I_SEED),
-                       code, p0, e1, e2, B);
-        // the emission term without emitters to sample
-        const V3 out = rad + col * B.sc.emitted;
-        if (a.bounce == 0) {
-          FR(F_NX) = B.r.N.x;
-          FR(F_NY) = B.r.N.y;
-          FR(F_NZ) = B.r.N.z;
-          FR(F_DEPTH) = B.r.t;
-        }
-        V3 c = B.c;
-        left = B.alive2;
-        if (B.rr_on) {
-          if (B.survive) c = c * B.inv_p;
-          left = B.survive;
-        }
-        FR(F_ROX) = B.sc.ro.x;
-        FR(F_ROY) = B.sc.ro.y;
-        FR(F_ROZ) = B.sc.ro.z;
-        FR(F_RDX) = B.sc.rd.x;
-        FR(F_RDY) = B.sc.rd.y;
-        FR(F_RDZ) = B.sc.rd.z;
-        FR(F_TMIN) = B.sc.t_min;
-        FR(F_RADX) = out.x;
-        FR(F_RADY) = out.y;
-        FR(F_RADZ) = out.z;
-        FR(F_COLX) = c.x;
-        FR(F_COLY) = c.y;
-        FR(F_COLZ) = c.z;
-      }
-      IR(I_ALIVE) = left ? 1 : 0;
-      IR(I_SEGS) = IR(I_SEGS) + 1;
+  int hint[kFwdPer], slot[kFwdPer];
+  float obj[kFwdPer];
+  bool any = false;
+  for (int k = 0; k < kFwdPer; ++k) {
+    any |= alive[k] != 0;
+    hint[k] = slot[k] = -1;
+    obj[k] = 0.0f;
+  }
+  if (any) {
+    load_lanes(a.hint, first, n, -1, hint);
+    if (a.s_slot != nullptr) {
+      load_lanes(a.s_slot, first, n, -1, slot);
+      load_lanes(a.s_obj, first, n, 0.0f, obj);
     }
+  }
+  for (int k = 0; k < kFwdPer; ++k) {
+    const bool live = alive[k] != 0;
+    code[k] = !live ? kDead
+                    : (slot[k] >= 0 ? max((int)obj[k], 0) * 2 + 1
+                                    : (hint[k] >= 0 ? (hint[k] >> 1) * 2 : kMiss));
+    slot[k] = live ? slot[k] : -1;
+  }
+  if (a.res_i != nullptr) {
+    store_lanes(a.res_i + (size_t)R_CODE * n, first, n, code);
+    store_lanes(a.res_i + (size_t)R_SLOT * n, first, n, slot);
+  }
+}
+
+#define FR(row) a.F[(size_t)(row) * a.n + i]
+#define IR(row) a.I[(size_t)(row) * a.n + i]
+#define RES(row) a.res_f[(size_t)(row) * a.n + i]
+
+// A live lane that missed: the path leaves with the background; its ray and
+// throughput stay as they are, and the backward reads only rd and col
+// again.  Returns whether it is left to trace (never)
+__device__ __forceinline__ bool fwd_miss(const FwdArgs& a, int i) {
+  const V3 rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
+  const V3 rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
+  const V3 col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
+  const int segs = IR(I_SEGS);
+  const V3 out = rad + col * background(a.scene.tab + a.scene.bg_off, rd);
+  FR(F_RADX) = out.x;
+  FR(F_RADY) = out.y;
+  FR(F_RADZ) = out.z;
+  if (a.res_f != nullptr) {
+    RES(R_RDX) = rd.x;
+    RES(R_RDY) = rd.y;
+    RES(R_RDZ) = rd.z;
+    RES(R_COLX) = col.x;
+    RES(R_COLY) = col.y;
+    RES(R_COLZ) = col.z;
+  }
+  IR(I_ALIVE) = 0;
+  IR(I_SEGS) = segs + 1;
+  return false;
+}
+
+// A live lane that hit (code): refine_hit, the body, roulette, the lane
+// state and residuals written.  Every load the lane needs is issued before
+// any is used (the payload's nine rows on a triangle only), so a warp waits
+// on memory once.  Returns whether it is left to trace
+__device__ __forceinline__ bool fwd_hit(const FwdArgs& a, int i, int code) {
+  const Scene& sc = a.scene;
+  const bool tri = code & 1;
+  const V3 ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
+  const V3 rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
+  const float t_min = FR(F_TMIN);
+  const V3 rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
+  const V3 col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
+  const uint32_t seed = (uint32_t)IR(I_SEED);
+  const int segs = IR(I_SEGS);
+  V3 p0 = v3(0.0f, 0.0f, 0.0f), e1 = p0, e2 = p0;
+  if (tri) {
+    p0 = v3(a.pay[0][i], a.pay[1][i], a.pay[2][i]);
+    e1 = v3(a.pay[3][i], a.pay[4][i], a.pay[5][i]);
+    e2 = v3(a.pay[6][i], a.pay[7][i], a.pay[8][i]);
+  }
+  const int obj = code >> 1;
+  const int row = tri ? 0 : sphere_row(sc.tab, sc.n_sph, obj);
+  Bounce B;
+  bounce_forward(sc, a.bounce, a.rr_start, ro, rd, t_min, col, seed, code, row, p0, e1, e2, B);
+  // the emission term without emitters to sample
+  const V3 out = rad + col * B.sc.emitted;
+  if (a.bounce == 0) {
+    FR(F_NX) = B.r.N.x;
+    FR(F_NY) = B.r.N.y;
+    FR(F_NZ) = B.r.N.z;
+    FR(F_DEPTH) = B.r.t;
+  }
+  V3 c = B.c;
+  bool left = B.alive2;
+  if (B.rr_on) {
+    if (B.survive) c = c * B.inv_p;
+    left = B.survive;
+  }
+  if (a.res_f != nullptr) {
+    const float vals[10] = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, t_min, col.x, col.y, col.z};
+    for (int r = 0; r < 10; ++r) RES(r) = vals[r];
+  }
+  FR(F_ROX) = B.sc.ro.x;
+  FR(F_ROY) = B.sc.ro.y;
+  FR(F_ROZ) = B.sc.ro.z;
+  FR(F_RDX) = B.sc.rd.x;
+  FR(F_RDY) = B.sc.rd.y;
+  FR(F_RDZ) = B.sc.rd.z;
+  FR(F_TMIN) = B.sc.t_min;
+  FR(F_RADX) = out.x;
+  FR(F_RADY) = out.y;
+  FR(F_RADZ) = out.z;
+  FR(F_COLX) = c.x;
+  FR(F_COLY) = c.y;
+  FR(F_COLZ) = c.z;
+  IR(I_ALIVE) = left ? 1 : 0;
+  IR(I_SEGS) = segs + 1;
+  return left;
+}
+
 #undef FR
 #undef IR
+#undef RES
+
+// Lane i with its code: nothing on a dead lane, a miss, or a hit of either
+// kind, one shade for both.  Returns whether it is left to trace
+__device__ __forceinline__ bool fwd_any(const FwdArgs& a, int i, int code) {
+  if (code == kDead) return false;
+  if (code == kMiss) return fwd_miss(a, i);
+  return fwd_hit(a, i, code);
+}
+
+// Thread t's share of the CTA's lanes: their flags, codes and code and
+// slot residuals (fwd_codes), the codes kept in shared memory.  Returns
+// whether one of its lanes is live
+__device__ __forceinline__ bool fwd_scan(const FwdArgs& a, int base, int* codes) {
+  const int first = base + threadIdx.x * kFwdPer;
+  int flags[kFwdPer], code[kFwdPer];
+  fwd_flags(a, first, flags);
+  fwd_codes(a, first, flags, code);
+  bool any = false;
+  for (int k = 0; k < kFwdPer; ++k) {
+    codes[threadIdx.x * kFwdPer + k] = code[k];
+    any |= code[k] != kDead;
   }
-  // every thread of the warp reaches the vote, out-of-range ones with 0
-  const unsigned votes = __ballot_sync(kFull, left);
-  if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(a.count, __popc(votes));
+  return any;
+}
+
+// Thread t's lanes in place: lanes t, t + kFwdThreads, ... of the CTA (a
+// warp's lanes neighbours), each as its code says (fwd_any).  Returns how
+// many it leaves to trace
+__device__ __forceinline__ int fwd_run(const FwdArgs& a, int base, const int* codes) {
+  int left = 0;
+  for (int k = 0; k < kFwdPer; ++k) {
+    const int off = threadIdx.x + kFwdThreads * k;
+    if (base + off < a.n) left += fwd_any(a, base + off, codes[off]) ? 1 : 0;
+  }
+  return left;
+}
+
+// One CTA: its kFwdLanes lanes' flags read and their code and slot
+// residuals written, one access a thread and row (fwd_scan); a CTA with no
+// live lane is done after one barrier, so a dead lane costs 12 bytes.
+// Otherwise the live lanes run in place (fwd_run); the lanes left are
+// summed a warp, one atomic a warp.
+__device__ __forceinline__ void fwd_cta(const FwdArgs& a, int* codes) {
+  const int base = blockIdx.x * kFwdLanes;
+  if (!__syncthreads_or(fwd_scan(a, base, codes))) return;
+  int left = fwd_run(a, base, codes);
+  for (int o = 16; o > 0; o >>= 1) left += __shfl_xor_sync(kFull, left, o);
+  if ((threadIdx.x & 31) == 0 && left != 0) atomicAdd(a.count, left);
+}
+
+__global__ void __launch_bounds__(kFwdThreads) diff_trip_fwd_kernel(const FwdArgs a) {
+  __shared__ int codes[kFwdLanes];
+  fwd_cta(a, codes);
 }
 
 // --- diff_trip_bwd -----------------------------------------------------------
@@ -625,7 +737,7 @@ __device__ __forceinline__ void hit_lane(const BwdArgs& a, int i, int& mkey, flo
   // the code with its case's bit set as the queue says, so the compiler
   // keeps only that case's refine branch
   bounce_forward(a.scene, a.bounce, a.rr_start, ro, rd, t_min, col, seed, kTri ? code | 1 : code & ~1,
-                 p0, e1, e2, B);
+                 kTri ? 0 : sphere_row(a.scene.tab, a.scene.n_sph, code >> 1), p0, e1, e2, B);
   const Scatter& sc = B.sc;
   const Refine& r = B.r;
   // roulette: a survivor's throughput c * (1 / p), p the clamped largest
@@ -1005,9 +1117,9 @@ int tpupt_diff_trip_fwd(float* F, int* I, int n, const int* hint, const int* s_s
             {p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z},
             {tab, n_sph, mat_off, obj_off, bg_off},
             bounce, rr_start, res_f, res_i, count};
-  if (n > 0) {
-    diff_trip_fwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
-  }
+  // a CTA for each kFwdLanes lanes
+  const int ctas = (int)(((long long)n + kFwdLanes - 1) / kFwdLanes);
+  if (n > 0) diff_trip_fwd_kernel<<<ctas, kFwdThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -216,6 +216,45 @@ __device__ __forceinline__ Scatter shade(const float* tab, int mat_off, const Hi
   return o;
 }
 
+// N values of one type, as one aligned access
+template <class T, int N> struct Vec;
+template <class T> struct Vec<T, 1> { using type = T; };
+template <> struct Vec<unsigned char, 2> { using type = unsigned short; };
+template <> struct Vec<unsigned char, 4> { using type = unsigned int; };
+template <> struct Vec<float, 2> { using type = float2; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<int, 2> { using type = int2; };
+template <> struct Vec<int, 4> { using type = int4; };
+
+// Entries first .. first + N - 1 of a row (fill past n): one access where
+// they lie in range and the address allows, else one each
+template <class T, int N>
+__device__ __forceinline__ void load_lanes(const T* row, int first, int n, T fill, T (&v)[N]) {
+  using W = typename Vec<T, N>::type;
+  const T* p = row + first;
+  if (first + N <= n && ((uintptr_t)p & (sizeof(W) - 1)) == 0u) {
+    const W q = *reinterpret_cast<const W*>(p);
+    for (int k = 0; k < N; ++k) v[k] = reinterpret_cast<const T*>(&q)[k];
+  } else {
+    for (int k = 0; k < N; ++k) v[k] = first + k < n ? p[k] : fill;
+  }
+}
+
+template <class T, int N>
+__device__ __forceinline__ void store_lanes(T* row, int first, int n, const T (&v)[N]) {
+  using W = typename Vec<T, N>::type;
+  T* p = row + first;
+  if (first + N <= n && ((uintptr_t)p & (sizeof(W) - 1)) == 0u) {
+    W q;
+    for (int k = 0; k < N; ++k) reinterpret_cast<T*>(&q)[k] = v[k];
+    *reinterpret_cast<W*>(p) = q;
+  } else {
+    for (int k = 0; k < N; ++k) {
+      if (first + k < n) p[k] = v[k];
+    }
+  }
+}
+
 // CTAs a persistent grid of `kernel` takes: as many as the card holds at
 // once at the kernel's occupancy, found once per device and shared memory
 struct Resident {

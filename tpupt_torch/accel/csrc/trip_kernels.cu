@@ -22,11 +22,11 @@
 // eager torch kernel, about a thousand launches a trip (three thousand
 // with NEE).  Here a trip is
 //
-//   trip_head   one thread a lane: the sphere pass over the scene's sphere
-//               objects in order (a later hit at an equal t overwrites an
-//               earlier one), its hit record, and the eight (np, 256) f32
-//               rows and the live mask that treelet_closest_hit takes
-//               (a dead lane: its -BIG seed and mask only);
+//   trip_head   the sphere pass over the scene's sphere objects in order
+//               (a later hit at an equal t overwrites an earlier one), its
+//               hit record, and the eight (np, 256) f32 rows and the live
+//               mask that treelet_closest_hit takes (a dead lane: its -BIG
+//               seed and mask only; CTAs of 512 lanes: see below);
 //   treelet_closest_hit (treelet_kernels.cu), for scenes with a mesh;
 //   trip_tail   one thread a lane: the triangle half of the hit record,
 //               the body (background on a miss, the first bounce's normal
@@ -59,15 +59,17 @@
 // through trip_head, ~250 through trip_tail and ~150 + 45 a NEE term
 // through trip_nee, and does a few hundred float operations (a thousand
 // with four lights), far below the 67 TFLOP/s FP32 rate (~20 operations a
-// byte at 3.35 TB/s).  So the design keeps every access coalesced (one
-// thread a lane, SoA rows, the packed rows written in the sweeps' own
-// layout), reads and writes a lane's state only where the lane needs it
-// (in trip_head a dead lane reads 4 bytes and writes the sweep's 5; in
-// trip_tail a lane that is done reads 12 bytes and writes 4; in trip_nee a
-// dead lane writes each term's 5), so a late trip with few live lanes
-// costs little more than its launch, and keeps the scene's small tables
-// (spheres, materials, the background, the lights, the camera) in one
-// table that every thread reads at the same address.
+// byte at 3.35 TB/s; on the lit scenes' dense trips, with every sphere
+// tested by every ray and shadow ray, the issue of those tests comes
+// near).  So the design keeps every access coalesced (SoA rows, the packed
+// rows written in the sweeps' own layout, neighbouring lanes on
+// neighbouring threads), reads and writes a lane's state only where the
+// lane needs it (in trip_head a dead lane reads 4 bytes and writes the
+// sweep's 5; in trip_tail a lane that is done reads 12 bytes and writes 4;
+// in trip_nee a dead lane writes each term's 5), so a late trip with few
+// live lanes costs little more than its launch, and keeps the scene's
+// small tables (spheres, materials, the background, the lights, the
+// camera) in one table that every thread reads at the same address.
 //
 // trip_nee is shaped by what held a thread-a-lane design back: a grid of
 // 256-lane CTAs ran in ~2.6 waves at 80 registers, a warp mixed four cases
@@ -92,7 +94,29 @@
 //     chunk with no live lane costs its flags and those stores;
 //   - the CDF is inverted by binary search (the same index: cum never
 //     decreases), and a sphere whose quadratic has no real root skips the
-//     roots' two divides (sphere_blocks: its answer is no either way).
+//     roots' two divides (sphere_roots: its answer is no either way).
+//
+// trip_head was one thread a lane too, and computed every sphere's
+// candidate whole (two transforms, the quadratic, two divides, the world
+// point and t, the normal) where only the winner's is kept.  trip_nee's
+// persistent grid lost on bunny's dense trips (uniform work: a warp's
+// chunks taken by grid index ran 5-8% behind the hardware's own handing
+// out of CTAs; PERF.md §6), so trip_head is a grid over every lane in
+// CTAs of 512 lanes:
+//   - a thread reads its two alive flags in one load and writes its lanes'
+//     mask in one store and, where a lane is not live, its -BIG seed (one
+//     store where neither is); a CTA with no live lane is done after one
+//     barrier, so a sparse trip costs little more than reading the flags;
+//   - otherwise the sphere rows are staged in shared memory (where there
+//     are two or more) and each thread runs its live lanes in place (lanes
+//     t and t + 256 of the CTA, a warp's lanes neighbours), both lanes'
+//     rays read before either's pass;
+//   - the sphere pass is lazy: a sphere's world t is measured only where
+//     its quadratic hits the window, its roots' divides only where the
+//     discriminant is >= 0 (the answer is no otherwise, whatever the
+//     roots), and the winner's normal once, after the loop, from the values
+//     its candidate computed: the same operations in the same order, so the
+//     same bits.
 //
 // Numerics: every float operation runs in the torch body's order and is
 // rounded once, as PyTorch's CUDA kernels round it (the library is built
@@ -112,7 +136,9 @@ namespace {
 
 // intersect._sphere_roots of one sphere object (its table row s) for a ray
 // and the window [t_min, t_bound]: the object-space quadratic.  Returns
-// whether it hits, with the root taken and the object-space ray.
+// whether it hits, with the root taken and the object-space ray.  Where the
+// discriminant is not >= 0 the answer is no whatever the roots, so their
+// two divides are skipped (t_obj is then not set).
 __device__ __forceinline__ bool sphere_roots(const float* s, V3 ro, V3 rd, float t_min,
                                              float t_bound, float* t_obj, V3* oo, V3* od) {
   const float* inv = s;
@@ -125,94 +151,232 @@ __device__ __forceinline__ bool sphere_roots(const float* s, V3 ro, V3 rd, float
   float b = 2.0f * dot(*od, oc);
   float cc = dot(oc, oc) - r * r;
   float disc = b * b - 4.0f * a * cc;
+  if (!(disc >= 0.0f)) return false;
   float sq = sqrtf(clamp_min(disc, 0.0f));
   float t1 = (-b - sq) / (2.0f * a);
   float t2 = (-b + sq) / (2.0f * a);
   bool use1 = (t1 >= t_min) & (t1 <= t_bound);
   bool use2 = (t2 >= t_min) & (t2 <= t_bound);
   *t_obj = use1 ? t1 : t2;
-  return (disc >= 0.0f) & (use1 | use2);
+  return use1 | use2;
+}
+
+// --- the grids of trip_head and trip_nee ---------------------------------------
+
+// trip_nee: a persistent grid of CTAs whose warps each take chunks of
+// kWarpLanes lanes (kLanePer a thread, whose alive flags it reads in one
+// load)
+constexpr int kGridThreads = kThreads;
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kWarpLanes = 64;
+constexpr int kLanePer = kWarpLanes / 32;
+// n_pad is a multiple of a packet's 256 lanes, so the chunks tile it
+static_assert(256 % kWarpLanes == 0 && (kLanePer == 1 || kLanePer == 2 || kLanePer == 4),
+              "a packet holds whole chunks, and a thread's lanes go out in one store");
+// The scene table up to the emissive triangles' rows (which a term reads
+// once, at a random row) is staged in shared memory where it fits (32 KB)
+constexpr int kStageMax = 8192;
+
+// The CTA's shared memory: each warp's queue of its chunk's live lanes
+// (trip_head: the CTA's live flags), then the staged table
+extern __shared__ float4 grid_sm[];  // float4: 16-byte aligned
+constexpr int kTabB = (2 * kGridWarps * kWarpLanes + 15) / 16 * 16;
+
+__device__ __forceinline__ unsigned short* sm_queue(int warp) {
+  return reinterpret_cast<unsigned short*>(grid_sm) + warp * kWarpLanes;
+}
+__device__ __forceinline__ float* sm_tab() {
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(grid_sm) + kTabB);
+}
+
+static_assert(kTabB + 4 * kStageMax <= 48 * 1024, "a CTA's shared memory needs no opt-in");
+
+size_t grid_smem_bytes(int n_stage) { return (size_t)kTabB + sizeof(float) * (size_t)n_stage; }
+
+// The first n_stage floats of tab into shared memory
+__device__ __forceinline__ void stage_table(const float* tab, int n_stage) {
+  float* st = sm_tab();
+  for (int e = threadIdx.x; e < n_stage; e += kGridThreads) st[e] = tab[e];
 }
 
 // --- trip_head ---------------------------------------------------------------
 
-// intersect._sphere_candidate of one sphere object (its table row s) for a
-// ray and the window [t_min, t_bound]: the object-space quadratic, the
-// winning t re-measured in world units.  Returns whether it hits.
-__device__ __forceinline__ bool sphere_candidate(const float* s, V3 ro, V3 rd, float t_min,
-                                                 float t_bound, float* t_w, V3* point_w,
-                                                 V3* normal_w, bool* front) {
-  const float* inv = s;
-  const float* m = s + 12;
-  V3 c = v3(s[24], s[25], s[26]);
-  float r = s[27];
-  float t_obj;
-  V3 oo, od;
-  bool hit = sphere_roots(s, ro, rd, t_min, t_bound, &t_obj, &oo, &od);
-  V3 point_obj = oo + od * t_obj;
-  *point_w = xform_point(m, point_obj);
-  V3 rel = *point_w - ro;
-  *t_w = sqrtf(clamp_min(dot(rel, rel), 1e-30f));
-  V3 outward = (point_obj - c) * (1.0f / r);
-  *front = dot(od, outward) < 0.0f;
-  *normal_w = xform_normal(inv, sel(*front, outward, -outward));
-  return hit;
+// A grid over every lane (the packed rows' pad lanes included) in CTAs of
+// kHeadLanes lanes, kHeadPer a thread, whose alive flags it reads in one
+// load
+constexpr int kHeadPer = 2;
+constexpr int kHeadLanes = kThreads * kHeadPer;
+// the CTA's live flags, in shared memory before the staged sphere rows
+static_assert(kHeadLanes <= kTabB, "a CTA's live flags fit before the staged table");
+
+struct HeadArgs {
+  const float* F;
+  const int* I;
+  int n, n_pad;
+  const float* tab;
+  int n_sph;
+  float* hrec;
+  int* hint;
+  float* rows;  // (8, n_pad), null without a mesh
+  unsigned char* act;
+  int n_stage;  // floats of tab staged in shared memory: the sphere rows, or none
+};
+
+// Live lanes idx[k] (-1: none): every lane's ray read first, then for each
+// intersect._sphere_pass over the sphere objects in the scene's order (a
+// later hit at an equal t overwrites an earlier one: the window is t1 <=
+// t_best), its record, and the sweep's rows seeded with its t.  The pass is
+// lazy: a sphere's world t is measured only where its quadratic hits the
+// window, and the winner's normal once, after the loop, from the values its
+// candidate computed (intersect._sphere_candidate's operations in its
+// order, so the same bits as computing every candidate whole and keeping
+// the winner's)
+template <bool kStaged>
+__device__ __forceinline__ void head_lanes(const HeadArgs& a, const int (&idx)[kHeadPer]) {
+  const float* tab = kStaged ? sm_tab() : a.tab;
+  const int n = a.n;
+  V3 ro[kHeadPer], rd[kHeadPer];
+  float t_min[kHeadPer];
+#pragma unroll
+  for (int k = 0; k < kHeadPer; ++k) {
+    const int i = idx[k];
+    if (i < 0) continue;
+    ro[k] = v3(a.F[(size_t)F_ROX * n + i], a.F[(size_t)F_ROY * n + i], a.F[(size_t)F_ROZ * n + i]);
+    rd[k] = v3(a.F[(size_t)F_RDX * n + i], a.F[(size_t)F_RDY * n + i], a.F[(size_t)F_RDZ * n + i]);
+    t_min[k] = a.F[(size_t)F_TMIN * n + i];
+  }
+#pragma unroll
+  for (int k = 0; k < kHeadPer; ++k) {
+    const int i = idx[k];
+    if (i < 0) continue;
+    float t_best = kBig;
+    int win = -1;  // the winning sphere's row
+    V3 od_w = v3(0.0f, 0.0f, 0.0f), pobj_w = od_w, point = od_w;
+    for (int o = 0; o < a.n_sph; ++o) {
+      const float* s = tab + o * kSphereRow;
+      float t_obj;
+      V3 oo, od;
+      if (!sphere_roots(s, ro[k], rd[k], t_min[k], t_best, &t_obj, &oo, &od)) continue;
+      const V3 point_obj = oo + od * t_obj;
+      const V3 point_w = xform_point(s + 12, point_obj);
+      const V3 rel = point_w - ro[k];
+      t_best = sqrtf(clamp_min(dot(rel, rel), 1e-30f));
+      win = o;
+      od_w = od;
+      pobj_w = point_obj;
+      point = point_w;
+    }
+    V3 normal = v3(0.0f, 0.0f, 0.0f);
+    int code = -1;  // object * 2 + front of the winning sphere, -1: none
+    if (win >= 0) {
+      const float* s = tab + win * kSphereRow;
+      const V3 outward = (pobj_w - v3(s[24], s[25], s[26])) * (1.0f / s[27]);
+      const bool front = dot(od_w, outward) < 0.0f;
+      normal = xform_normal(s, sel(front, outward, -outward));
+      code = (int)s[28] * 2 + (front ? 1 : 0);
+    }
+    a.hrec[0 * (size_t)n + i] = t_best;
+    a.hrec[1 * (size_t)n + i] = point.x;
+    a.hrec[2 * (size_t)n + i] = point.y;
+    a.hrec[3 * (size_t)n + i] = point.z;
+    a.hrec[4 * (size_t)n + i] = normal.x;
+    a.hrec[5 * (size_t)n + i] = normal.y;
+    a.hrec[6 * (size_t)n + i] = normal.z;
+    a.hint[i] = code;
+    if (a.rows != nullptr) {  // the sweep's rows (its mask went out with the flags)
+      const float vals[8] = {ro[k].x, ro[k].y, ro[k].z, rd[k].x, rd[k].y, rd[k].z, t_min[k],
+                             t_best};
+      for (int r = 0; r < 8; ++r) a.rows[(size_t)r * a.n_pad + i] = vals[r];
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) trip_head_kernel(
-    const float* __restrict__ F, const int* __restrict__ I, int n, int n_pad,
-    const float* __restrict__ tab, int n_sph, float* __restrict__ hrec, int* __restrict__ hint,
-    float* __restrict__ rows, unsigned char* __restrict__ act) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) {
-    if (rows != nullptr && i < n_pad) {  // pad lanes, as packets._pack_rows pads
-      const float pad[8] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f, -kBig};
-      for (int r = 0; r < 8; ++r) rows[(size_t)r * n_pad + i] = pad[r];
-      act[i] = 0;
-    }
-    return;
+// The sweep's mask of lanes first .. first + kHeadPer - 1 in one store, and
+// the -BIG seed of those not live (one store where none is); pad lanes
+// (past n) also take packets._pack_rows' pad rows.  A dead lane's record
+// and ray rows keep what they held, since neither the sweep (which takes a
+// lane with a -BIG seed out of its cull and walk) nor the kernels after it
+// read them.
+__device__ __forceinline__ void head_close(const HeadArgs& a, int first,
+                                           const int (&flags)[kHeadPer]) {
+  using Mask = Vec<unsigned char, kHeadPer>::type;
+  using Cap = Vec<float, kHeadPer>::type;
+  Mask m;
+  bool any = false;
+  for (int k = 0; k < kHeadPer; ++k) {
+    reinterpret_cast<unsigned char*>(&m)[k] = flags[k] != 0 ? 1 : 0;
+    any |= flags[k] != 0;
   }
-  if (I[(size_t)I_ALIVE * n + i] == 0) {
-    // a dead lane: the sweep's -BIG seed and mask only.  Its record and ray
-    // rows keep what they held, since neither the sweep (which takes a lane
-    // with a -BIG seed out of its cull and walk) nor trip_tail reads them.
-    if (rows != nullptr) {
-      rows[(size_t)7 * n_pad + i] = -kBig;
-      act[i] = 0;
-    }
-    return;
-  }
-  const V3 ro = v3(F[(size_t)F_ROX * n + i], F[(size_t)F_ROY * n + i], F[(size_t)F_ROZ * n + i]);
-  const V3 rd = v3(F[(size_t)F_RDX * n + i], F[(size_t)F_RDY * n + i], F[(size_t)F_RDZ * n + i]);
-  const float t_min = F[(size_t)F_TMIN * n + i];
-  float t_best = kBig;
-  V3 point = v3(0.0f, 0.0f, 0.0f), normal = v3(0.0f, 0.0f, 0.0f);
-  int code = -1;  // object * 2 + front of the winning sphere, -1: none
-  for (int o = 0; o < n_sph; ++o) {
-    const float* s = tab + o * kSphereRow;
-    float t_w;
-    V3 pw, nw;
-    bool fr;
-    if (sphere_candidate(s, ro, rd, t_min, t_best, &t_w, &pw, &nw, &fr)) {
-      t_best = t_w;
-      point = pw;
-      normal = nw;
-      code = (int)s[28] * 2 + (fr ? 1 : 0);
+  *reinterpret_cast<Mask*>(a.act + first) = m;
+  float* seed = a.rows + (size_t)7 * a.n_pad + first;
+  if (!any) {
+    Cap c;
+    for (int k = 0; k < kHeadPer; ++k) reinterpret_cast<float*>(&c)[k] = -kBig;
+    *reinterpret_cast<Cap*>(seed) = c;
+  } else {
+    for (int k = 0; k < kHeadPer; ++k) {
+      if (flags[k] == 0) seed[k] = -kBig;
     }
   }
-  hrec[0 * (size_t)n + i] = t_best;
-  hrec[1 * (size_t)n + i] = point.x;
-  hrec[2 * (size_t)n + i] = point.y;
-  hrec[3 * (size_t)n + i] = point.z;
-  hrec[4 * (size_t)n + i] = normal.x;
-  hrec[5 * (size_t)n + i] = normal.y;
-  hrec[6 * (size_t)n + i] = normal.z;
-  hint[i] = code;
-  if (rows != nullptr) {  // the sweep's rows, seeded with the sphere pass's t
-    const float vals[8] = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, t_min, t_best};
-    for (int r = 0; r < 8; ++r) rows[(size_t)r * n_pad + i] = vals[r];
-    act[i] = 1;
+  const float pad[7] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
+  for (int k = max(a.n - first, 0); k < kHeadPer; ++k) {
+    for (int r = 0; r < 7; ++r) a.rows[(size_t)r * a.n_pad + first + k] = pad[r];
   }
+}
+
+// Thread t's share of the CTA's lanes: its kHeadPer flags read in one load
+// and, with a mesh, its lanes' mask and dead lanes' seeds written
+// (head_close); the flags kept in shared memory.  Returns whether one of
+// its lanes is live
+__device__ __forceinline__ bool head_flags(const HeadArgs& a, int base, unsigned char* live) {
+  const int lanes = a.rows != nullptr ? a.n_pad : a.n;
+  const int first = base + threadIdx.x * kHeadPer;
+  const int* alive = a.I + (size_t)I_ALIVE * a.n;
+  int flags[kHeadPer];
+  load_lanes(alive, first, a.n, 0, flags);
+  // n_pad is a multiple of a packet's 256 lanes, so a thread's lanes lie
+  // all inside it or all past it
+  if (a.rows != nullptr && first < lanes) head_close(a, first, flags);
+  bool any = false;
+  for (int k = 0; k < kHeadPer; ++k) {
+    live[threadIdx.x * kHeadPer + k] = flags[k] != 0 ? 1 : 0;
+    any |= flags[k] != 0;
+  }
+  return any;
+}
+
+// Thread t's live lanes in place: lanes t, t + kThreads, ... of the CTA (a
+// warp's lanes neighbours), their rays read together (head_lanes)
+template <bool kStaged>
+__device__ __forceinline__ void head_run(const HeadArgs& a, int base, const unsigned char* live) {
+  int idx[kHeadPer];
+  for (int k = 0; k < kHeadPer; ++k) {
+    const int off = threadIdx.x + kThreads * k;
+    idx[k] = live[off] ? base + off : -1;
+  }
+  head_lanes<kStaged>(a, idx);
+}
+
+// One CTA: its kHeadLanes lanes' flags, mask and seeds (head_flags); a CTA
+// with no live lane is done after one barrier.  Otherwise the sphere rows
+// are staged and the live lanes run in place (head_run).  A dead or pad
+// lane costs its flag and its share of the mask and seed stores, so a
+// sparse trip costs little more than reading the flags
+template <bool kStaged>
+__device__ __forceinline__ void head_cta(const HeadArgs& a) {
+  unsigned char* live = reinterpret_cast<unsigned char*>(grid_sm);
+  const int base = blockIdx.x * kHeadLanes;
+  if (!__syncthreads_or(head_flags(a, base, live))) return;
+  if (kStaged) {
+    stage_table(a.tab, a.n_stage);
+    __syncthreads();
+  }
+  head_run<kStaged>(a, base, live);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads) trip_head_kernel(const HeadArgs a) {
+  head_cta<kStaged>(a);
 }
 
 // --- the body, shared by trip_tail and trip_nee -------------------------------
@@ -364,24 +528,12 @@ __device__ __forceinline__ float t_light(V3 p, V3 dir, V3 center, float radius) 
 }
 
 // One sphere object (its table row s) of intersect.sphere_occlusion: it
-// hits the shadow ray in [1e-4, t_limit].  This is sphere_roots'
-// quadratic; where the discriminant is not >= 0, sphere_roots answers no
-// whatever its roots, so the test skips their two divides
+// hits the shadow ray in [1e-4, t_limit] (sphere_roots' quadratic, which
+// skips the roots' divides where no real root exists)
 __device__ __forceinline__ bool sphere_blocks(const float* s, V3 p, V3 dir, float t_limit) {
-  const V3 c = v3(s[24], s[25], s[26]);
-  const float r = s[27];
-  const V3 oo = xform_point(s, p);
-  const V3 od = normalize(xform_vector(s, dir));
-  const V3 oc = oo - c;
-  const float a = dot(od, od);
-  const float b = 2.0f * dot(od, oc);
-  const float cc = dot(oc, oc) - r * r;
-  const float disc = b * b - 4.0f * a * cc;
-  if (!(disc >= 0.0f)) return false;
-  const float sq = sqrtf(clamp_min(disc, 0.0f));
-  const float t1 = (-b - sq) / (2.0f * a);
-  const float t2 = (-b + sq) / (2.0f * a);
-  return ((t1 >= 1e-4f) & (t1 <= t_limit)) | ((t2 >= 1e-4f) & (t2 <= t_limit));
+  float t_obj;
+  V3 oo, od;
+  return sphere_roots(s, p, dir, 1e-4f, t_limit, &t_obj, &oo, &od);
 }
 
 // intersect.sphere_occlusion of one shadow ray: a sphere object other than
@@ -491,35 +643,6 @@ __host__ __device__ __forceinline__ int nee_terms(int n_lights, int n_tri) {
   return (n_tri > 0 ? 1 : 0) + (n_lights > kUnrollMax ? 1 : n_lights);
 }
 
-// A persistent grid of CTAs whose warps each take chunks of kWarpLanes
-// lanes (kNeePer a thread, whose alive flags it reads in one load)
-constexpr int kNeeThreads = kThreads;
-constexpr int kNeeWarps = kNeeThreads / 32;
-constexpr int kWarpLanes = 64;
-constexpr int kNeePer = kWarpLanes / 32;
-// n_pad is a multiple of a packet's 256 lanes, so the chunks tile it
-static_assert(256 % kWarpLanes == 0 && (kNeePer == 1 || kNeePer == 2 || kNeePer == 4),
-              "a packet holds whole chunks, and a thread's lanes go out in one store");
-// The scene table up to the emissive triangles' rows (which a term reads
-// once, at a random row) is staged in shared memory where it fits (32 KB)
-constexpr int kStageMax = 8192;
-
-// The CTA's shared memory: each warp's queue of its chunk's live lanes,
-// then the staged table
-extern __shared__ float4 nee_sm[];  // float4: 16-byte aligned
-constexpr int kTabB = (2 * kNeeWarps * kWarpLanes + 15) / 16 * 16;
-
-__device__ __forceinline__ unsigned short* sm_queue(int warp) {
-  return reinterpret_cast<unsigned short*>(nee_sm) + warp * kWarpLanes;
-}
-__device__ __forceinline__ float* sm_tab() {
-  return reinterpret_cast<float*>(reinterpret_cast<char*>(nee_sm) + kTabB);
-}
-
-static_assert(kTabB + 4 * kStageMax <= 48 * 1024, "a CTA's shared memory needs no opt-in");
-
-size_t nee_smem_bytes(int n_stage) { return (size_t)kTabB + sizeof(float) * (size_t)n_stage; }
-
 // The table the CTA reads (the staged one where it is)
 template <bool kStaged>
 __device__ __forceinline__ const float* nee_table(const NeeArgs& a) {
@@ -533,39 +656,23 @@ __device__ __forceinline__ Lights nee_lights(const NeeArgs& a) {
                    a.nee_off, a.n_lights, a.n_tri);
 }
 
-// The scene table into shared memory, as far as the launch stages it
-__device__ __forceinline__ void stage_table(const NeeArgs& a) {
-  float* st = sm_tab();
-  for (int e = threadIdx.x; e < a.n_stage; e += kNeeThreads) st[e] = a.tab[e];
-}
-
-// kNeePer values, as one store
-template <class T, int N> struct Vec;
-template <class T> struct Vec<T, 1> { using type = T; };
-template <> struct Vec<unsigned char, 2> { using type = unsigned short; };
-template <> struct Vec<unsigned char, 4> { using type = unsigned int; };
-template <> struct Vec<float, 2> { using type = float2; };
-template <> struct Vec<float, 4> { using type = float4; };
-template <> struct Vec<int, 2> { using type = int2; };
-template <> struct Vec<int, 4> { using type = int4; };
-
-// Lanes first .. first + kNeePer - 1 closed in every term's region (mask 0,
+// Lanes first .. first + kLanePer - 1 closed in every term's region (mask 0,
 // the -BIG seed), one store each; pad lanes (past n) also take
 // packets._pack_rows' pad rows.  nee_term rewrites the lanes NEE lights.
 __device__ __forceinline__ void close_lanes(const NeeArgs& a, int first) {
   const size_t rows_stride = (size_t)a.terms * a.n_pad;
   const float pad[7] = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
-  using Mask = Vec<unsigned char, kNeePer>::type;
-  using Cap = Vec<float, kNeePer>::type;
+  using Mask = Vec<unsigned char, kLanePer>::type;
+  using Cap = Vec<float, kLanePer>::type;
   const Mask m{};
   Cap c;
-  for (int k = 0; k < kNeePer; ++k) reinterpret_cast<float*>(&c)[k] = -kBig;
+  for (int k = 0; k < kLanePer; ++k) reinterpret_cast<float*>(&c)[k] = -kBig;
   for (int t = 0; t < a.terms; ++t) {
     const size_t j = (size_t)t * a.n_pad + first;
     *reinterpret_cast<Mask*>(a.mask + j) = m;
     if (a.rows == nullptr) continue;
     *reinterpret_cast<Cap*>(a.rows + 7 * rows_stride + j) = c;
-    for (int k = max(a.n - first, 0); k < kNeePer; ++k) {
+    for (int k = max(a.n - first, 0); k < kLanePer; ++k) {
       for (int r = 0; r < 7; ++r) a.rows[r * rows_stride + j + k] = pad[r];
     }
   }
@@ -676,36 +783,29 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, int i) {
 
 // The CTA's share of the trip: the table staged, then each warp on its
 // own: chunk c of kWarpLanes lanes to warp c % (the grid's warps).  A
-// thread reads its kNeePer alive flags in one load and closes its lanes'
+// thread reads its kLanePer alive flags in one load and closes its lanes'
 // entries; the warp queues its live lanes in lane order and runs them one
 // a thread (nee_lane).  No barrier after the staging, so the warps of an
 // SM drift apart and one's loads overlap another's arithmetic; a dead or
 // pad lane costs its alive flag and its share of the closing stores.
 template <bool kStaged>
 __device__ __forceinline__ void nee_cta(const NeeArgs& a) {
-  if (kStaged) stage_table(a);
+  if (kStaged) stage_table(a.tab, a.n_stage);
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = gridDim.x * kNeeWarps;
+  const int warps = gridDim.x * kGridWarps;
   const int chunks = a.n_pad / kWarpLanes;
   const int* alive = a.I + (size_t)I_ALIVE * a.n;
-  const bool vec = ((uintptr_t)alive & (4 * kNeePer - 1)) == 0u;
   unsigned short* queue = sm_queue(warp);
-  for (int c = blockIdx.x * kNeeWarps + warp; c < chunks; c += warps) {
-    const int lane0 = c * kWarpLanes, first = lane0 + lane * kNeePer;
-    int flags[kNeePer];
-    if (vec && first + kNeePer <= a.n) {
-      using Flags = Vec<int, kNeePer>::type;
-      const Flags f = *reinterpret_cast<const Flags*>(alive + first);
-      for (int k = 0; k < kNeePer; ++k) flags[k] = reinterpret_cast<const int*>(&f)[k];
-    } else {
-      for (int k = 0; k < kNeePer; ++k) flags[k] = first + k < a.n ? alive[first + k] : 0;
-    }
+  for (int c = blockIdx.x * kGridWarps + warp; c < chunks; c += warps) {
+    const int lane0 = c * kWarpLanes, first = lane0 + lane * kLanePer;
+    int flags[kLanePer];
+    load_lanes(alive, first, a.n, 0, flags);
     close_lanes(a, first);
     // the live lanes' queue in lane order: the thread's count, then its
     // exclusive sum over the warp
     int own = 0;
-    for (int k = 0; k < kNeePer; ++k) own += flags[k] != 0 ? 1 : 0;
+    for (int k = 0; k < kLanePer; ++k) own += flags[k] != 0 ? 1 : 0;
     int incl = own;
     for (int o = 1; o < 32; o <<= 1) {
       const int u = __shfl_up_sync(kFull, incl, o);
@@ -713,8 +813,8 @@ __device__ __forceinline__ void nee_cta(const NeeArgs& a) {
     }
     const int n_live = __shfl_sync(kFull, incl, 31);
     int at = incl - own;
-    for (int k = 0; k < kNeePer; ++k) {
-      if (flags[k] != 0) queue[at++] = (unsigned short)(lane * kNeePer + k);
+    for (int k = 0; k < kLanePer; ++k) {
+      if (flags[k] != 0) queue[at++] = (unsigned short)(lane * kLanePer + k);
     }
     __syncwarp();
     for (int j = lane; j < n_live; j += 32) nee_lane<kStaged>(a, lane0 + queue[j]);
@@ -725,7 +825,7 @@ __device__ __forceinline__ void nee_cta(const NeeArgs& a) {
 // Two CTAs an SM: ~90 registers and no spill (at three, 80 registers
 // spill, which costs more than the third CTA gains)
 template <bool kStaged>
-__global__ void __launch_bounds__(kNeeThreads, 2) trip_nee_kernel(const NeeArgs a) {
+__global__ void __launch_bounds__(kGridThreads, 2) trip_nee_kernel(const NeeArgs a) {
   nee_cta<kStaged>(a);
 }
 
@@ -956,18 +1056,27 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
   if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(a.count, __popc(votes));
 }
 
+// One trip_head launch over `ctas` CTAs of kHeadLanes lanes (kStaged: with
+// the sphere rows staged)
+template <bool kStaged>
+void launch_head(const HeadArgs& a, int ctas, cudaStream_t stream) {
+  const auto kernel = trip_head_kernel<kStaged>;
+  const size_t smem = grid_smem_bytes(a.n_stage);
+  kernel<<<ctas, kThreads, smem, stream>>>(a);
+}
+
 // One trip_nee launch (kStaged: with the staged table): as many CTAs as
-// the card holds at once, or one for each kNeeWarps chunks where there are
+// the card holds at once, or one for each kGridWarps chunks where there are
 // fewer chunks
 template <bool kStaged>
 cudaError_t launch_nee(const NeeArgs& a, size_t smem, cudaStream_t stream) {
   const auto kernel = trip_nee_kernel<kStaged>;
   static Resident resident;
   int ctas = 0;
-  const cudaError_t err = resident_ctas(resident, kernel, kNeeThreads, smem, &ctas);
+  const cudaError_t err = resident_ctas(resident, kernel, kGridThreads, smem, &ctas);
   if (err != cudaSuccess) return err;
-  const int need = (a.n_pad / kWarpLanes + kNeeWarps - 1) / kNeeWarps;
-  kernel<<<ctas < need ? ctas : need, kNeeThreads, smem, stream>>>(a);
+  const int need = (a.n_pad / kWarpLanes + kGridWarps - 1) / kGridWarps;
+  kernel<<<ctas < need ? ctas : need, kGridThreads, smem, stream>>>(a);
   return cudaSuccess;
 }
 
@@ -982,8 +1091,18 @@ int tpupt_trip_head(const float* F, const int* I, int n, int n_pad, const float*
                     cudaStream_t stream) {
   const int lanes = rows != nullptr ? n_pad : n;
   if (lanes > 0) {
-    trip_head_kernel<<<(lanes + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        F, I, n, n_pad, tab, n_sph, hrec, hint, rows, act);
+    // the sphere rows staged where a ray tests two or more (one row is read
+    // once a lane, from the L1 cache, either way: staging it costs a
+    // barrier and gains nothing)
+    const int sph = n_sph * kSphereRow;
+    const int n_stage = n_sph > 1 && sph <= kStageMax ? sph : 0;
+    const HeadArgs a{F, I, n, n_pad, tab, n_sph, hrec, hint, rows, act, n_stage};
+    const int ctas = (lanes + kHeadLanes - 1) / kHeadLanes;
+    if (n_stage > 0) {
+      launch_head<true>(a, ctas, stream);
+    } else {
+      launch_head<false>(a, ctas, stream);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1004,7 +1123,7 @@ int tpupt_trip_nee(float* F, int* I, int n, int n_pad, const float* hrec, const 
   NeeArgs a{F,       I,       n,       n_pad,    {hrec, hint, s_t, s_slot, s_nx, s_ny, s_nz, s_obj},
             tab,     n_sph,   mat_off, obj_off,  bg_off,     nee_off,  n_lights,  n_tri,
             alive_next, contrib, mask, rows, terms, n_stage};
-  const size_t smem = nee_smem_bytes(n_stage);
+  const size_t smem = grid_smem_bytes(n_stage);
   const cudaError_t err = n_stage > 0 ? launch_nee<true>(a, smem, stream)
                                       : launch_nee<false>(a, smem, stream);
   if (err != cudaSuccess) return (int)err;
