@@ -1,0 +1,6 @@
+"""The share of the traced window in which no operation ran on the
+device."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.window_s) if ctx.trace.busy_s > 0 else None
