@@ -114,6 +114,7 @@ from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noq
 from tpupt_torch.scene.bake import rebake_treelets  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 from tpupt_torch.scene.procedural import icosphere  # noqa: E402
+from tpupt_torch.utils import trace  # noqa: E402
 from tpupt_torch.utils.image import to_uint8  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -932,22 +933,16 @@ pay_secondary = compare_payload("secondaries after bounce 0", scene_r,
 
 # --- 4 -------------------------------------------------------------------
 phase(f"4 main path: bunny.json render {SIZE}^2, {SPP} spp, {MAX_BOUNCES} bounces, rr {RR}")
-counted = (sweep_kernel.treelet_closest_hit, step_kernel.winner_step, sweep_kernel.treelet_any_hit,
-           slot_scatter)
+counts_at_reset = trace.launch_counts()
 
 
 def reset_counts():
-    for w in counted:
-        w.launches = 0
-    sweep_kernel.treelet_closest_hit.payload_launches = 0
-    for table in (trip_kernel.LAUNCHES, diff_trip.LAUNCHES):
-        for k in table:
-            table[k] = 0
+    counts_at_reset.update(trace.launch_counts())
 
 
 def read_counts():
-    return dict(sweep_kernel.launch_counts(), winner_step=step_kernel.winner_step.launches,
-                **trip_kernel.launch_counts(), **diff_trip.launch_counts())
+    """Every hand-written kernel's launches since the last reset_counts()."""
+    return {k: n - counts_at_reset[k] for k, n in trace.launch_counts().items()}
 
 
 reset_counts()
@@ -1737,11 +1732,12 @@ def nee_render(name, size=NEE_SIZE, route="trip", intersect_fn=None, any_hit=Non
 
         fn.calls = 0
     assert integrator.render_route(nee_scene[name], False, fn, any_hit) == route, (name, route)
-    heads = trip_kernel.LAUNCHES["trip_head"]
+    heads = trace.launch_counts()["trip_head"]
     buf, rays = tpupt_torch.render_image(
         nee_scene[name], nee_desc[name].camera, size, size, spp=NEE_SPP[name],
         max_bounces=NEE_BOUNCES, rr_start=NEE_RR, intersect_fn=fn, any_hit=any_hit, device=DEV)
-    return buf, int(rays), fn.calls if route == "body" else trip_kernel.LAUNCHES["trip_head"] - heads
+    calls = fn.calls if route == "body" else trace.launch_counts()["trip_head"] - heads
+    return buf, int(rays), calls
 
 
 def drive_nee(name, calls):

@@ -55,6 +55,7 @@ from tpupt_torch import extract_params, render_image, with_params  # noqa: E402
 from tpupt_torch.accel import kernels  # noqa: E402
 from tpupt_torch.diff.params import MATERIAL_LEAVES, PARAM_LEAVES  # noqa: E402
 from tpupt_torch.render import diff_trip, trip_kernel  # noqa: E402
+from tpupt_torch.utils import trace  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 
@@ -245,7 +246,7 @@ def main():
         with using(libs[lib_name]):
             step()
             torch.cuda.synchronize()
-            n0 = dict(diff_trip.LAUNCHES, **trip_kernel.LAUNCHES)
+            n0 = trace.launch_counts()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 step()
                 torch.cuda.synchronize()
@@ -254,7 +255,7 @@ def main():
         def dev(key):
             return sum(e.self_device_time_total for e in kav if key in e.key) / 1e3
 
-        now = dict(diff_trip.LAUNCHES, **trip_kernel.LAUNCHES)
+        now = trace.launch_counts()
         rec = report["steps"].setdefault(lib_name, [])
         rec.append(dict(diff_trip_fwd_ms=dev(KERNEL), trip_head_ms=dev("trip_head_kernel"),
                         busy_ms=sum(e.self_device_time_total for e in kav) / 1e3,

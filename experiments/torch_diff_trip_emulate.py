@@ -168,8 +168,6 @@ def emulated_wrappers(lib) -> dict:
         scope = dict(vars(mod), _check=lambda *a: lib, _lib=lib)
         exec(src, scope)
         out[name] = scope[name]
-        if name == "slot_scatter":
-            out[name].launches = 0
     return out
 
 

@@ -50,8 +50,8 @@ class Tree:
             self.desc = scene_from_json(os.path.join(locate_asset_path(), "scenes", "bunny.json"))
             self.scene = self.desc.build(leaf_size=32, device=dev)
             self.render_image = tpupt_torch.render_image
-            # intersect_treelets looks the wrapper up at each call; the
-            # wrapper counts its launches on the module's name for it
+            # intersect_treelets looks the wrapper up at each call; an older
+            # checkout's wrapper counts its launches on the module's name
             wrapped = sweep_kernel.treelet_closest_hit
             self.in_wrapper = 0.0
 

@@ -56,6 +56,7 @@ from test_torch_trip_nee import _port_scene  # noqa: E402
 from tpupt_torch import render_image  # noqa: E402
 from tpupt_torch.accel import kernels  # noqa: E402
 from tpupt_torch.render import trip_kernel  # noqa: E402
+from tpupt_torch.utils import trace  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 from tpupt_torch.scene.json_parser import scene_from_json  # noqa: E402
 
@@ -249,7 +250,7 @@ def main():
             with using(libs[lib_name]):
                 render_image(scene, cam, size, size, **kw)
                 torch.cuda.synchronize()
-                n0 = trip_kernel.LAUNCHES["trip_head"]
+                n0 = trace.launch_counts()["trip_head"]
                 with torch.profiler.profile(
                         activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                     render_image(scene, cam, size, size, **kw)
@@ -259,7 +260,7 @@ def main():
             rec.append(dict(trip_head_ms=sum(e.self_device_time_total for e in kav
                                              if KERNEL in e.key) / 1e3,
                             busy_ms=sum(e.self_device_time_total for e in kav) / 1e3,
-                            launches=trip_kernel.LAUNCHES["trip_head"] - n0))
+                            launches=trace.launch_counts()["trip_head"] - n0))
             print(f"{label} render, {lib_name}: {rec[-1]}  [{smi}]", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "torch_trip_head.json"), "w") as fh:

@@ -66,6 +66,7 @@ from test_torch_trip_nee import HEAD_OUT, NEE_OUT, _port_scene  # noqa: E402
 from tpupt_torch import render_image  # noqa: E402
 from tpupt_torch.accel import kernels  # noqa: E402
 from tpupt_torch.render import trip_kernel  # noqa: E402
+from tpupt_torch.utils import trace  # noqa: E402
 from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path  # noqa: E402
 
 SIZE, BOUNCES, RR = 512, 4, 2
@@ -446,7 +447,7 @@ def main():
         with using(libs[lib_name]):
             render_image(scene, cam, SIZE, SIZE, spp=16, max_bounces=BOUNCES, rr_start=RR)
             torch.cuda.synchronize()
-            n0 = trip_kernel.LAUNCHES["trip_nee"]
+            n0 = trace.launch_counts()["trip_nee"]
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 render_image(scene, cam, SIZE, SIZE, spp=16, max_bounces=BOUNCES, rr_start=RR)
                 torch.cuda.synchronize()
@@ -455,7 +456,7 @@ def main():
         rec.append(dict(trip_nee_ms=sum(e.self_device_time_total for e in kav
                                         if KERNEL in e.key) / 1e3,
                         busy_ms=sum(e.self_device_time_total for e in kav) / 1e3,
-                        launches=trip_kernel.LAUNCHES["trip_nee"] - n0))
+                        launches=trace.launch_counts()["trip_nee"] - n0))
         print(f"cornell_area render, {lib_name}: {rec[-1]}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "torch_trip_nee.json"), "w") as fh:

@@ -36,6 +36,7 @@ import torch_diff_trip_emulate as emu  # noqa: E402
 import test_torch_trip as trip  # noqa: E402
 
 from tpupt_torch.render import diff_trip  # noqa: E402
+from tpupt_torch.utils import trace  # noqa: E402
 from tpupt_torch.render.integrator import render_route  # noqa: E402
 
 SIZE = 8
@@ -123,9 +124,9 @@ def test_emulated_slot_scatter_equals_index_add(emulated, layout):
         slot_t = slot_t[1:]  # 4 bytes past an aligned start
     else:
         slot_t = slot_t[:n]
-    before = emulated["slot_scatter"].launches
+    before = trace.launch_counts()["slot_scatter"]
     got = emulated["slot_scatter"](torch.zeros((rows, 9)), slot_t, cot)
     keep = slot_t >= 0
     want = torch.zeros((rows, 9)).index_add_(0, slot_t[keep].long(), cot[keep])
-    assert emulated["slot_scatter"].launches == before + 1
+    assert trace.launch_counts()["slot_scatter"] == before + 1
     assert torch.equal(got, want)

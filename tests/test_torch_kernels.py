@@ -28,6 +28,7 @@ from tpupt_torch.render.integrator import render_image
 from tpupt_torch.render.intersect import intersect_scene_ids, intersect_scene_ids_diff
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.procedural import icosphere
+from tpupt_torch.utils import trace
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -214,9 +215,8 @@ def _kernel_equals_twin(scene, ro, rd, t_min, t_seed, active, diff_payload=False
     """One kernel launch against the twin on the same rays: every channel
     (6, or 15 with the payload) exactly equal.  Returns the kernel's slots
     and extras."""
-    fn = sweep_kernel.treelet_closest_hit
-    counter = "payload_launches" if diff_payload else "launches"
-    before = getattr(fn, counter)
+    counter = "treelet_closest_hit(payload=True)" if diff_payload else "treelet_closest_hit"
+    before = trace.launch_counts()[counter]
     tk, sk, ek = packets.intersect_treelets(scene, ro, rd, t_min, t_seed, active,
                                             diff_payload=diff_payload)
     tp, sp, ep = packets.intersect_treelets(
@@ -224,7 +224,7 @@ def _kernel_equals_twin(scene, ro, rd, t_min, t_seed, active, diff_payload=False
         closest_hit=sweep_kernel.treelet_closest_hit_plain, diff_payload=diff_payload,
     )
     torch.cuda.synchronize()
-    assert getattr(fn, counter) == before + 1
+    assert trace.launch_counts()[counter] == before + 1
     assert torch.equal(sk, sp) and torch.equal(tk, tp)
     assert ek.keys() == ep.keys() and len(ek) == (13 if diff_payload else 4)
     for key in ek:
@@ -312,12 +312,12 @@ def test_treelet_any_hit_kernel_equals_twin(lex, window, cuda_device):
     two-level cull included: every lane's occlusion equal."""
     scene = lex.to(cuda_device)
     ro, rd, t_min, t_limit, active = lex_shadow_rays(window, cuda_device)
-    before = sweep_kernel.treelet_any_hit.launches
+    before = trace.launch_counts()["treelet_any_hit"]
     occ_k = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active)
     occ_p = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active,
                                               any_hit=sweep_kernel.treelet_any_hit_plain)
     torch.cuda.synchronize()
-    assert sweep_kernel.treelet_any_hit.launches == before + 1
+    assert trace.launch_counts()["treelet_any_hit"] == before + 1
     assert occ_k.dtype == torch.bool and torch.equal(occ_k, occ_p)
     assert 0 < int(occ_k.sum()) < int(active.sum()) and not bool(occ_k[~active].any())
 
@@ -368,12 +368,12 @@ def test_any_hit_kernel_equals_twin_by_live_lanes(request, scene_name, live, cud
     equal to the twin's, one call counted."""
     scene = request.getfixturevalue(scene_name).to(cuda_device)
     ro, rd, t_min, t_limit, active = _any_hit_inputs(scene_name, ANY_HIT_LIVE[live], cuda_device)
-    before = sweep_kernel.treelet_any_hit.launches
+    before = trace.launch_counts()["treelet_any_hit"]
     occ_k = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active)
     occ_p = packets.intersect_treelets_anyhit(scene, ro, rd, t_min, t_limit, active,
                                               any_hit=sweep_kernel.treelet_any_hit_plain)
     torch.cuda.synchronize()
-    assert sweep_kernel.treelet_any_hit.launches == before + 1
+    assert trace.launch_counts()["treelet_any_hit"] == before + 1
     assert occ_k.dtype == torch.bool and torch.equal(occ_k, occ_p)
     assert not bool(occ_k[~active].any())
     if int(active.sum()) >= 100:
@@ -403,12 +403,12 @@ def test_nee_render_kernel_equals_twin(cuda_device):
     twin = functools.partial(
         intersect_scene_ids, closest_hit=sweep_kernel.treelet_closest_hit_plain
     )
-    before = sweep_kernel.treelet_any_hit.launches
+    before = trace.launch_counts()["treelet_any_hit"]
     bk, rk = render_image(scene, cam, 48, 40, **kw)
-    launched = sweep_kernel.treelet_any_hit.launches - before
+    launched = trace.launch_counts()["treelet_any_hit"] - before
     bp, rp = render_image(scene, cam, 48, 40, intersect_fn=twin,
                           any_hit=sweep_kernel.treelet_any_hit_plain, **kw)
-    assert launched > 0 and sweep_kernel.treelet_any_hit.launches - before == launched
+    assert launched > 0 and trace.launch_counts()["treelet_any_hit"] - before == launched
     assert int(rk) == int(rp) > 48 * 40 * 2
     for key in ("color", "normal", "depth"):
         assert torch.equal(getattr(bk, key), getattr(bp, key)), key
@@ -433,11 +433,11 @@ def test_winner_step_kernel_equals_twin(ico, cuda_device):
     comps = blocks.permute(0, 2, 1, 3).reshape(sz, 13, rl).contiguous().to(dev)
     slots = torch.from_numpy((tids[:, :, None] * 32 + np.arange(32)).reshape(sz, rl)).int().to(dev)
     live = f(r.random((sz, rl)) < 0.9)
-    before = step_kernel.winner_step.launches
+    before = trace.launch_counts()["winner_step"]
     out_k = step_kernel.winner_step(rows, comps, live, slots)
     out_p = step_kernel.winner_step_plain(rows, comps, live, slots)
     torch.cuda.synchronize()
-    assert step_kernel.winner_step.launches == before + 1
+    assert trace.launch_counts()["winner_step"] == before + 1
     for a, b in zip(out_k, out_p):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int((out_k[0] < 3.0e38).sum()) > 1000
@@ -476,11 +476,11 @@ def test_winner_step_kernel_equals_twin_shapes(ico, sz, p, rl, offset, cuda_devi
     comps_d.copy_(comps)
     slots = torch.from_numpy(slot_ids).int().to(dev)
     live = f(r.random((sz, rl)) < 0.9)
-    before = step_kernel.winner_step.launches
+    before = trace.launch_counts()["winner_step"]
     out_k = step_kernel.winner_step(rows, comps_d, live, slots)
     out_p = step_kernel.winner_step_plain(rows, comps_d, live, slots)
     torch.cuda.synchronize()
-    assert step_kernel.winner_step.launches == before + 1
+    assert trace.launch_counts()["winner_step"] == before + 1
     for a, b in zip(out_k, out_p):
         assert a.dtype == b.dtype and torch.equal(a, b)
     if rl >= 32:
@@ -525,10 +525,10 @@ def test_diff_render_kernel_equals_twin(ico, cuda_device):
     out = []
     for fn in (None, twin):
         params = extract_params(scene)
-        before = sweep_kernel.treelet_closest_hit.payload_launches
+        before = trace.launch_counts()["treelet_closest_hit(payload=True)"]
         buf, rays = render_image(with_params(scene, params), cam, 48, 40, spp=1, max_bounces=4,
                                  differentiable=True, intersect_fn=fn)
-        launched = sweep_kernel.treelet_closest_hit.payload_launches - before
+        launched = trace.launch_counts()["treelet_closest_hit(payload=True)"] - before
         loss = (buf.color ** 2).sum()
         leaves = [params[k] for k in PARAM_LEAVES] + list(params["materials"].values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
@@ -630,9 +630,9 @@ def test_diff_trip_route_equals_body_route_on_card(cuda_device, rr_start):
     from tpupt_torch.render import diff_trip, trip_kernel
 
     scene, cam = _diff_scene(cuda_device)
-    before = dict(diff_trip.launch_counts(), **trip_kernel.launch_counts())
+    before = trace.launch_counts()
     bk, rk, gk = _diff_step(scene, cam, rr_start=rr_start)
-    after = dict(diff_trip.launch_counts(), **trip_kernel.launch_counts())
+    after = trace.launch_counts()
     bp, rp, gp = _diff_step(scene, cam, functools.partial(intersect_scene_ids_diff), rr_start)
     torch.cuda.synchronize()
     moved = {k: after[k] - before[k] for k in after}
@@ -657,9 +657,9 @@ def test_diff_trip_route_equals_body_route_nine_spheres(cuda_device, rr_start):
     from tpupt_torch.render import diff_trip
 
     scene, cam = nine_spheres(device=cuda_device)
-    before = diff_trip.launch_counts()["diff_trip_fwd"]
+    before = trace.launch_counts()["diff_trip_fwd"]
     bk, rk, gk = _diff_step(scene, cam, rr_start=rr_start)
-    assert diff_trip.launch_counts()["diff_trip_fwd"] > before
+    assert trace.launch_counts()["diff_trip_fwd"] > before
     bp, rp, gp = _diff_step(scene, cam, functools.partial(intersect_scene_ids_diff), rr_start)
     torch.cuda.synchronize()
     assert rk == rp > 48 * 40 * 2
@@ -685,11 +685,11 @@ def test_diff_trip_fwd_equals_twin_on_states(cuda_device, name, case):
     state, bounce = {"dense, bounce 0": ("dense", 0), "sparse, bounce 2": ("sparse", 2),
                      "all dead": ("all_dead", 2)}[case]
     args = diff_inputs(name, state, bounce, device=cuda_device)
-    before = diff_trip.launch_counts()["diff_trip_fwd"]
+    before = trace.launch_counts()["diff_trip_fwd"]
     got = fwd_run(diff_trip.diff_trip_fwd, *args, bounce)
     want = fwd_run(diff_trip.diff_trip_fwd_plain, *args, bounce)
     torch.cuda.synchronize()
-    assert diff_trip.launch_counts()["diff_trip_fwd"] == before + 1
+    assert trace.launch_counts()["diff_trip_fwd"] == before + 1
     for label, a, b in zip(("F", "I", "res_f", "res_i", "count"), got, want):
         assert torch.equal(a, b), label
 
@@ -807,12 +807,12 @@ def test_slot_scatter_kernel_on_empty_and_one_row(cuda_device, slots):
     slot = torch.full((n,), -1 if slots == "every slot -1" else 123, dtype=torch.int32,
                       device=cuda_device)
     cot = torch.from_numpy(r.integers(-8, 9, (n, 9)).astype(np.float32)).to(cuda_device)
-    before = slot_scatter.launches
+    before = trace.launch_counts()["slot_scatter"]
     got = slot_scatter(torch.zeros((rows, 9), device=cuda_device), slot, cot)
     keep = slot >= 0
     want = torch.zeros((rows, 9), device=cuda_device).index_add_(0, slot[keep].long(), cot[keep])
     torch.cuda.synchronize()
-    assert slot_scatter.launches == before + 1
+    assert trace.launch_counts()["slot_scatter"] == before + 1
     assert torch.equal(got, want)
     assert bool(got.any()) == (slots != "every slot -1")
 
@@ -834,12 +834,12 @@ def test_slot_scatter_kernel_equals_index_add(cuda_device, layout):
     cot = torch.from_numpy(r.standard_normal((n, 9)).astype(np.float32)).to(cuda_device)
     if layout != "(N, 9)":
         cot = cot.t().contiguous().t()
-    before = slot_scatter.launches
+    before = trace.launch_counts()["slot_scatter"]
     got = slot_scatter(torch.zeros((rows, 9), device=cuda_device), slot, cot)
     keep = slot >= 0
     want = torch.zeros((rows, 9), device=cuda_device).index_add_(0, slot[keep], cot[keep])
     torch.cuda.synchronize()
-    assert slot_scatter.launches == before + 1
+    assert trace.launch_counts()["slot_scatter"] == before + 1
     assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)
 
 

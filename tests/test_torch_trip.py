@@ -54,6 +54,7 @@ from tpupt_torch.render.intersect import (intersect_scene_ids, intersect_scene_i
 from tpupt_torch.scene.bake import rebake_treelets
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.procedural import icosphere
+from tpupt_torch.utils import trace
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -451,7 +452,7 @@ ROUTES = {  # (scene, differentiable, intersect_fn, any_hit) -> route
 
 @pytest.fixture
 def head_calls(monkeypatch):
-    """Counts trip_head calls (the twin's too, unlike LAUNCHES)."""
+    """Counts trip_head calls (the twin's too, unlike the launch counts)."""
     calls = []
     head = trip_kernel.trip_head
 
@@ -543,11 +544,11 @@ def test_trip_kernels_equal_twins(cuda_device, mode):
             for k in HEAD_OUT:
                 if getattr(b, k) is not None:
                     getattr(b, k).copy_(before[k])
-        h0 = trip_kernel.LAUNCHES["trip_head"]
+        h0 = trace.launch_counts()["trip_head"]
         trip_kernel.trip_head(plan, F.clone(), I.clone(), bk)
         trip_kernel.trip_head_plain(plan, F.clone(), I.clone(), bp)
         torch.cuda.synchronize()
-        assert trip_kernel.LAUNCHES["trip_head"] == h0 + 1
+        assert trace.launch_counts()["trip_head"] == h0 + 1
         assert torch.equal(bk.hrec, hrec) and torch.equal(bk.hint, hint)
         for a, b in ((bk.hrec, bp.hrec), (bk.hint, bp.hint), (bk.rows, bp.rows),
                      (bk.act_p, bp.act_p)):
@@ -573,11 +574,11 @@ def test_trip_head_equals_twin_on_states(cuda_device, name, state):
     packed rows and mask with their pad lanes, and the 7s a lane that is
     not live leaves), the lanes of ``state`` alive, at 23 x 7 lanes."""
     plan, F, I = head_inputs(name, state, cuda_device)
-    h0 = trip_kernel.LAUNCHES["trip_head"]
+    h0 = trace.launch_counts()["trip_head"]
     got = head_run(trip_kernel.trip_head, plan, F, I)
     want = head_run(trip_kernel.trip_head_plain, plan, F, I)
     torch.cuda.synchronize()
-    assert trip_kernel.LAUNCHES["trip_head"] == h0 + 1
+    assert trace.launch_counts()["trip_head"] == h0 + 1
     assert_head_equal(got, want)
     assert plan.mesh == (name == "spheres_mesh") and plan.n_pad > plan.n
 
@@ -587,9 +588,9 @@ def test_trip_head_equals_twin_on_states(cuda_device, name, state):
 def test_trip_route_equals_body_route_nine_spheres_on_card(cuda_device, mode):
     scene, cam = nine_spheres(device=cuda_device)
     kw = dict(width=40, height=24, spp=2, max_bounces=5, rr_start=2, **MODES[mode])
-    before = trip_kernel.launch_counts()["trip_head"]
+    before = trace.launch_counts()["trip_head"]
     trip = render_image(scene, cam, **kw)
-    assert trip_kernel.launch_counts()["trip_head"] > before
+    assert trace.launch_counts()["trip_head"] > before
     _assert_equal(trip, render_image(scene, cam, intersect_fn=BODY, **kw))
 
 
@@ -599,9 +600,9 @@ def test_trip_route_equals_body_route_nine_spheres_on_card(cuda_device, mode):
 def test_trip_route_equals_body_route_on_card(cuda_device, mode, rr_start):
     scene, cam = _spheres_scene(device=cuda_device)
     kw = dict(width=48, height=40, spp=2, max_bounces=6, rr_start=rr_start, **MODES[mode])
-    before = trip_kernel.launch_counts()
+    before = trace.launch_counts()
     trip = render_image(scene, cam, **kw)
-    after = trip_kernel.launch_counts()
+    after = trace.launch_counts()
     assert after["trip_tail"] > before["trip_tail"] and after["trip_head"] > before["trip_head"]
     _assert_equal(trip, render_image(scene, cam, intersect_fn=BODY, **kw))
 

@@ -62,6 +62,7 @@ from tpupt_torch.scene.assets_gen import ensure_models, locate_asset_path
 from tpupt_torch.scene.description import SceneDescription
 from tpupt_torch.scene.json_parser import scene_from_json
 from tpupt_torch.scene.procedural import icosphere
+from tpupt_torch.utils import trace
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -194,9 +195,9 @@ def test_trace_sample_trip_equals_body(scenes, name):
 
 @pytest.fixture
 def trip_calls(monkeypatch):
-    """Counts the trip kernels' calls (the twins' too, unlike LAUNCHES)
+    """Counts the trip kernels' calls (the twins' too, unlike the launch counts)
     and fails on any ``_bounce_body``."""
-    calls = {k: 0 for k in trip_kernel.LAUNCHES}
+    calls = {k: 0 for k in ("trip_head", "trip_nee", "trip_tail")}
     for name in calls:
         fn = getattr(trip_kernel, name)
 
@@ -385,11 +386,11 @@ def test_trip_nee_kernels_equal_twins(cuda_device, scenes_dir, name, chained):
         saved = dict(r["head"], **r["nee_pre"])
         bk, bp = _buffers_from(plan, saved), _buffers_from(plan, saved)
         Fk, Ik, Fp, Ip = r["F1"].clone(), r["I1"].clone(), r["F1"].clone(), r["I1"].clone()
-        n0 = trip_kernel.LAUNCHES["trip_nee"]
+        n0 = trace.launch_counts()["trip_nee"]
         trip_kernel.trip_nee(plan, Fk, Ik, bk, r["sweep"])
         trip_kernel.trip_nee_plain(plan, Fp, Ip, bp, r["sweep"])
         torch.cuda.synchronize()
-        assert trip_kernel.LAUNCHES["trip_nee"] == n0 + 1
+        assert trace.launch_counts()["trip_nee"] == n0 + 1
         assert torch.equal(Fk, Fp), (trip, (Fk != Fp).sum(dim=1).tolist())
         assert torch.equal(Ik, Ip), trip
         for k in NEE_OUT:
@@ -412,9 +413,9 @@ def test_trip_nee_kernels_equal_twins(cuda_device, scenes_dir, name, chained):
 def test_trip_route_equals_body_route_on_card(cuda_device, scenes_dir, name):
     scene, cam = _port_scene(name, scenes_dir, device=cuda_device)
     kw = dict(width=48, height=40, spp=2, max_bounces=4, rr_start=2)
-    before = trip_kernel.launch_counts()
+    before = trace.launch_counts()
     trip = render_image(scene, cam, **kw)
-    after = trip_kernel.launch_counts()
+    after = trace.launch_counts()
     assert after["trip_nee"] > before["trip_nee"] and after["trip_tail"] > before["trip_tail"]
     _assert_equal(trip, render_image(scene, cam, intersect_fn=BODY, **kw))
 

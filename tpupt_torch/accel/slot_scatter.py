@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from tpupt_torch.accel import kernels
+from tpupt_torch.utils import trace
 
 
 def slot_scatter_plain(g: torch.Tensor, slot: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
@@ -46,8 +47,7 @@ def slot_scatter(g: torch.Tensor, slot: torch.Tensor, cot: torch.Tensor) -> torc
     buffer as its transpose).  A slot past g's rows
     is an error, as in ``index_add_`` (the kernel's assert fails the
     launch).  Atomic adds: the sum of a row's lanes comes in no fixed
-    order.  Launches are counted in
-    ``slot_scatter.launches``."""
+    order.  Launches are counted under "slot_scatter" (``utils.trace``)."""
     if g.device.type == "cpu":
         return slot_scatter_plain(g, slot, cot)
     req = kernels.require
@@ -66,8 +66,5 @@ def slot_scatter(g: torch.Tensor, slot: torch.Tensor, cot: torch.Tensor) -> torc
         err = lib.tpupt_slot_scatter(g.data_ptr(), g.shape[0], slot.data_ptr(), cot.data_ptr(), n,
                                      cot.stride(0), cot.stride(1), kernels.stream_of(g))
         kernels.check(lib, err, "slot_scatter")
-        slot_scatter.launches += 1
+        trace.launched("slot_scatter")
     return g
-
-
-slot_scatter.launches = 0

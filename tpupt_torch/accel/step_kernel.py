@@ -17,6 +17,7 @@ import torch
 
 from tpupt_torch.accel import kernels
 from tpupt_torch.accel.packets import _ROW_KEYS, BIG, _dense_mt, _winner_fold
+from tpupt_torch.utils import trace
 
 
 def winner_step_plain(rows, comps, live, slots):
@@ -70,8 +71,5 @@ def winner_step(rows, comps, live, slots):
             *[o.data_ptr() for o in out], kernels.stream_of(comps),
         )
         kernels.check(lib, err, "winner_step")
-        winner_step.launches += 1
+        trace.launched("winner_step")
     return tuple(out)
-
-
-winner_step.launches = 0

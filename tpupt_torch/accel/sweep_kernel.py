@@ -35,6 +35,7 @@ from tpupt_torch.accel.packets import (
     _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries, _dense_mt,
 )
 from tpupt_torch.accel.step_kernel import winner_step_plain
+from tpupt_torch.utils import trace
 
 
 def _payload_rows(tre_tris, leaf, slot):
@@ -194,8 +195,8 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=F
     0 and obj -1.  ``payload=True`` appends the winner's p0x, p0y, p0z, e1x,
     ..., e2z (9 more (np, 256) f32; the unit triangle where slot is -1).
 
-    Launches are counted in ``treelet_closest_hit.launches`` (6 channels)
-    and ``treelet_closest_hit.payload_launches`` (the payload form).
+    Launches are counted under "treelet_closest_hit" (6 channels) and
+    "treelet_closest_hit(payload=True)" (``utils.trace``).
     """
     if tre_tris.device.type == "cpu":
         return treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf,
@@ -213,23 +214,16 @@ def treelet_closest_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf, payload=F
             kernels.stream_of(tre_tris),
         )
         kernels.check(lib, err, "treelet_closest_hit")
-        if payload:
-            treelet_closest_hit.payload_launches += 1
-        else:
-            treelet_closest_hit.launches += 1
+        trace.launched("treelet_closest_hit(payload=True)" if payload else "treelet_closest_hit")
     return tuple(out) + tuple(pay.unbind(0)) if payload else tuple(out)
-
-
-treelet_closest_hit.launches = 0
-treelet_closest_hit.payload_launches = 0
 
 
 def treelet_any_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
     """Occlusion per lane for packed shadow rays (``packets._pack_rows``
     with the window end as the t cap): (np, 256) bool, True where an active
     lane hits a triangle at t in [tmin, t].  Inputs as
-    ``treelet_closest_hit``'s.  Calls are counted in
-    ``treelet_any_hit.launches``: one per call, which launches the walk
+    ``treelet_closest_hit``'s.  Calls are counted under "treelet_any_hit"
+    (``utils.trace``): one per call, which launches the walk
     kernel alone below 96 treelets, the warp route and the block route up
     to 512, and the block route alone above."""
     if tre_tris.device.type == "cpu":
@@ -243,17 +237,5 @@ def treelet_any_hit(rows, act_p, tre_min, tre_max, tre_tris, leaf):
             kernels.stream_of(tre_tris),
         )
         kernels.check(lib, err, "treelet_any_hit")
-        treelet_any_hit.launches += 1
+        trace.launched("treelet_any_hit")
     return occ
-
-
-treelet_any_hit.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches so far in this process, by kernel form."""
-    return {
-        "treelet_closest_hit": treelet_closest_hit.launches,
-        "treelet_closest_hit(payload=True)": treelet_closest_hit.payload_launches,
-        "treelet_any_hit": treelet_any_hit.launches,
-    }

@@ -46,7 +46,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "checkpoint/progress granularity (default 32)")
     p.add_argument("--stats-json", default=None, help="write stage timing/throughput JSON here")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the path-tracing stage here")
+                   help="write a torch.profiler Chrome trace of the path-tracing stage here, "
+                        "with the program's tpupt.* spans")
     p.add_argument("--checkpoint", default=None, metavar="NPZ",
                    help="save accumulation state here; resumes from it if present")
     p.add_argument("--honor-background", action="store_true",
@@ -69,14 +70,6 @@ def resolve_scene_path(filename: str) -> str:
     if os.path.exists(cand):
         return cand
     raise SystemExit(f"Cannot find scene file {filename!r}")
-
-
-def _launch_counts() -> dict[str, int]:
-    """Every hand-written kernel's launches so far in this process."""
-    from tpupt_torch.accel import sweep_kernel
-    from tpupt_torch.render import trip_kernel
-
-    return {**sweep_kernel.launch_counts(), **trip_kernel.launch_counts()}
 
 
 def main(argv=None) -> int:
@@ -126,6 +119,7 @@ def main(argv=None) -> int:
 
     sw.stage("Initialization")
     from tpupt_torch.render.progressive import PathTracer
+    from tpupt_torch.utils import trace
 
     scene = desc.build(device=args.device)
     tracer = PathTracer(scene, (width, height),
@@ -150,7 +144,7 @@ def main(argv=None) -> int:
     # allocator warm-up), apart from the steady rate.
     chunk = max(1, args.chunk)
     if cuda:
-        launches_before = _launch_counts()
+        launches_before = trace.launch_counts()
     total_rays = 0
     chunk_stats = []  # (seconds, ray segments) per chunk
     t0 = time.perf_counter()
@@ -165,7 +159,7 @@ def main(argv=None) -> int:
             if args.checkpoint and tracer.iteration < desc.spp:
                 tracer.save_checkpoint(args.checkpoint)
     trace_secs = time.perf_counter() - t0
-    launched = ({k: n - launches_before[k] for k, n in _launch_counts().items()} if cuda
+    launched = ({k: n - launches_before[k] for k, n in trace.launch_counts().items()} if cuda
                 else None)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

@@ -42,7 +42,10 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors.  The twins are assembled from the body
 route's functions (``DiffPlan.bounce``: ``refine_hit``, ``_bounce_shade``,
 ``_bounce_finish``); the backward twin is the VJP of one such bounce by
-torch autograd.  Launches are counted in ``LAUNCHES``.
+torch autograd.  Launches are counted in ``utils.trace.launch_counts()``.
+A sample's set-up (``tpupt.diff.start``), each bounce's issue and read of
+the lanes left (``tpupt.diff.issue``, ``tpupt.diff.wait``) and the
+backward pass (``tpupt.diff.backward``) are spans of ``utils.trace``.
 """
 
 from __future__ import annotations
@@ -55,11 +58,11 @@ from torch.autograd.function import once_differentiable
 
 from tpupt_torch.accel import kernels, sweep_kernel
 from tpupt_torch.accel.packets import _DIFF_KEYS
-from tpupt_torch.accel.slot_scatter import slot_scatter
 from tpupt_torch.core.types import PRIM_NONE, PRIM_SPHERE, PRIM_TRIANGLE, HitIds
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.render import trip_kernel as tk
 from tpupt_torch.utils import debug
+from tpupt_torch.utils import trace as tracing  # ``trace`` is this module's DiffTrip call
 
 # a bounce's residuals: the ray, t_min and throughput it found, and its hit
 # (code: object * 2 + 1 on a triangle, object * 2 on a sphere, MISS or
@@ -76,7 +79,6 @@ G_KEYS = ("rox", "roy", "roz", "rdx", "rdy", "rdz", "radx", "rady", "radz",
 # the leaves a gradient reaches on this path, besides the slot table
 LEAVES = ("sphere_center", "sphere_radius", "bg_down", "bg_up")
 MATERIAL_LEAVES = ("albedo", "fuzz", "ior", "emission")
-LAUNCHES = {"diff_trip_fwd": 0, "diff_trip_bwd": 0}  # kernel launches in this process
 
 
 class Residuals(NamedTuple):
@@ -303,7 +305,7 @@ def diff_trip_fwd(dp: DiffPlan, F, I, buf: tk.TripBuffers, sweep, bounce: int,
     ``buf``'s rows; None for a scene without meshes), ``refine_hit`` and
     the body without emitters; the bounce's residuals into ``res`` (None:
     none kept), the lanes left into ``buf.count``.  Returns (F, I).
-    Launches are counted in ``LAUNCHES["diff_trip_fwd"]``."""
+    Launches are counted under "diff_trip_fwd" (``utils.trace``)."""
     if F.device.type == "cpu":
         return diff_trip_fwd_plain(dp, F, I, buf, sweep, bounce, res)
     plan = dp.trip
@@ -339,7 +341,7 @@ def diff_trip_fwd(dp: DiffPlan, F, I, buf: tk.TripBuffers, sweep, bounce: int,
             None if res is None else res.f.data_ptr(), None if res is None else res.i.data_ptr(),
             buf.count.data_ptr(), kernels.stream_of(F))
         kernels.check(lib, err, "diff_trip_fwd")
-        LAUNCHES["diff_trip_fwd"] += 1
+        tracing.launched("diff_trip_fwd")
     else:
         buf.count.zero_()
     return F, I
@@ -358,7 +360,7 @@ def diff_trip_bwd(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab, g_sl
     persistent grid whose CTAs take chunks of lanes from a work counter
     and queue each chunk's live lanes by case, so its work follows the
     bounce's live lanes.  A slot past the slot table fails the launch.
-    Launches are counted in ``LAUNCHES["diff_trip_bwd"]``."""
+    Launches are counted under "diff_trip_bwd" (``utils.trace``)."""
     if G.device.type == "cpu":
         return diff_trip_bwd_plain(dp, G, res, seed, bounce, gtab, g_slot)
     plan = dp.trip
@@ -399,7 +401,7 @@ def diff_trip_bwd(dp: DiffPlan, G, res: Residuals, seed, bounce: int, gtab, g_sl
             None if g_slot is None else g_slot.data_ptr(),
             _work_counter(G.device, stream).data_ptr(), stream)
         kernels.check(lib, err, "diff_trip_bwd")
-        LAUNCHES["diff_trip_bwd"] += 1
+        tracing.launched("diff_trip_bwd")
     return G
 
 
@@ -414,11 +416,6 @@ def _work_counter(device, stream) -> torch.Tensor:
     if key not in _WORK:
         _WORK[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return _WORK[key]
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches so far in this process, slot_scatter's included."""
-    return dict(LAUNCHES, slot_scatter=slot_scatter.launches)
 
 
 # --- the Function -------------------------------------------------------------
@@ -441,23 +438,27 @@ class DiffTrip(torch.autograd.Function):
         plan = dp.trip
         scene, n = plan.scene, plan.n
         tre = (scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
-        F, I = dp.start()
-        buf = tk.trip_buffers(plan)
-        seed = I[tk.I_KEYS.index("seed")].clone()
+        with tracing.span("tpupt.diff.start", device=scene.device):
+            F, I = dp.start()
+            buf = tk.trip_buffers(plan)
+            seed = I[tk.I_KEYS.index("seed")].clone()
         res, rays, live = [], 0, n
         for b in range(plan.max_bounces):
             if live == 0:
                 break
             rays += live
-            tk.trip_head(plan, F, I, buf)
-            sweep = (sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre,
-                                                      payload=True) if plan.mesh else None)
-            r = residuals(n, F.device) if keep else None
-            diff_trip_fwd(dp, F, I, buf, sweep, b, r)
-            # TPUPT_DEBUG=1 guards on the bounce's outputs (nothing when unset)
-            debug.check_finite("bounce radiance/throughput", *tk.rows(F, tk.RADIANCE + tk.COLOR))
-            debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
-            live = int(buf.count)
+            with tracing.span("tpupt.diff.issue"):
+                tk.trip_head(plan, F, I, buf)
+                sweep = (sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre,
+                                                          payload=True) if plan.mesh else None)
+                r = residuals(n, F.device) if keep else None
+                diff_trip_fwd(dp, F, I, buf, sweep, b, r)
+            if debug.enabled():  # TPUPT_DEBUG=1 guards on the bounce's outputs
+                debug.check_finite("bounce radiance/throughput",
+                                   *tk.rows(F, tk.RADIANCE + tk.COLOR))
+                debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
+            with tracing.span("tpupt.diff.wait"):
+                live = int(buf.count)
             if keep:
                 res.append(r)
         st = tk.unpack_state(F, I)["state"]
@@ -473,21 +474,22 @@ class DiffTrip(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_color, g_normal, g_depth, _g_rays):
-        dp = ctx.dp
-        plan = dp.trip
-        G = torch.zeros((len(G_KEYS), plan.n), dtype=torch.float32, device=g_color.device)
-        G[6:9] = g_color.t()
-        G[9:12] = torch.where(ctx.alive, g_color.t(), 0.0)
-        G[12:15] = g_normal.t()
-        G[15] = g_depth
-        gtab = leaf_table_zeros(plan)
-        want_slot = dp.table is not None and ctx.needs_input_grad[1]
-        g_slot = torch.zeros_like(dp.table) if want_slot else None
-        for b in reversed(range(len(ctx.res))):
-            diff_trip_bwd(dp, G, ctx.res[b], ctx.seed, b, gtab, g_slot)
-        grads = split_leaf_table(plan, gtab)
-        return (None, g_slot) + tuple(grads[k] if ctx.needs_input_grad[2 + j] else None
-                                      for j, k in enumerate(LEAVES + MATERIAL_LEAVES))
+        with tracing.span("tpupt.diff.backward"):
+            dp = ctx.dp
+            plan = dp.trip
+            G = torch.zeros((len(G_KEYS), plan.n), dtype=torch.float32, device=g_color.device)
+            G[6:9] = g_color.t()
+            G[9:12] = torch.where(ctx.alive, g_color.t(), 0.0)
+            G[12:15] = g_normal.t()
+            G[15] = g_depth
+            gtab = leaf_table_zeros(plan)
+            want_slot = dp.table is not None and ctx.needs_input_grad[1]
+            g_slot = torch.zeros_like(dp.table) if want_slot else None
+            for b in reversed(range(len(ctx.res))):
+                diff_trip_bwd(dp, G, ctx.res[b], ctx.seed, b, gtab, g_slot)
+            grads = split_leaf_table(plan, gtab)
+            return (None, g_slot) + tuple(grads[k] if ctx.needs_input_grad[2 + j] else None
+                                          for j, k in enumerate(LEAVES + MATERIAL_LEAVES))
 
 
 def trace(dp: DiffPlan, table) -> tuple:

@@ -54,6 +54,12 @@ equals the same rows of the whole image.  They are the unit of
 cotangents over a process group (``grad_psum_axis``) per bounce or once
 (``diff.overlap``).
 
+While a ``torch.profiler`` session runs, the loops mark their stages as
+spans of ``utils.trace`` (a render, a trip's set-up, issue, read of the
+lanes left and finish; a differentiable sample's plan and accumulate) and
+count each trip's live and launched lanes; otherwise a span costs one call
+of the profiler's flag.
+
 The JAX package's compaction ladders (forward and differentiable) are
 scheduling only and are left out.  The shadow rays take the any-hit
 test, whose sweep is ``any_hit``, except under a reference intersector,
@@ -103,7 +109,7 @@ from tpupt_torch.sampling.rng import bounce_counter, jitter_counters, pixel_seed
 from tpupt_torch.render import diff_trip
 from tpupt_torch.render import trip_kernel as tk
 from tpupt_torch.scene.bake import rebake_treelets
-from tpupt_torch.utils import debug
+from tpupt_torch.utils import debug, trace
 
 MAX_BOUNCES_DEFAULT = 50  # reference max_bounces
 
@@ -672,48 +678,67 @@ def _trip_start(plan: tk.TripPlan):
     return tk.pack_state(st, seed, torch.zeros_like(plan.pix), _chain_start(plan.pix))
 
 
-def _run_trips(plan):
-    """The trip route's loop: per trip ``trip_head``, the closest-hit
+def _trip_setup(scene, camera, width, height, **kw):
+    """The trip route's set-up (span ``tpupt.trip.setup``): the plan
+    (``_trip_plan``'s arguments), the lane state at the start and the
+    trip buffers.  Returns (plan, F, I, buf)."""
+    with trace.span("tpupt.trip.setup"):
+        plan = _trip_plan(scene, camera, width, height, **kw)
+        F, I = _trip_start(plan)
+        return plan, F, I, tk.trip_buffers(plan)
+
+
+def _run_trips(plan, F, I, buf):
+    """The trip route's loop on the lane state (F, I) and the trip
+    buffers (``_trip_setup``): per trip ``trip_head``, the closest-hit
     sweep on its packed rows (scenes with a mesh), with emitters
     ``trip_nee`` and the any-hit sweep on its shadow rows (every NEE term
-    in one call; scenes with a mesh), ``trip_tail``, and one 4-byte read
-    of the lanes still to trace.  Returns the lane state (F, I) after the
-    last trip."""
+    in one call; scenes with a mesh), ``trip_tail`` (span
+    ``tpupt.trip.issue``), and one 4-byte read of the lanes still to
+    trace (span ``tpupt.trip.wait``).  Counts the lanes live at each
+    trip's start (the segments they trace) and the lanes the trips launch
+    over.  Returns the lane state (F, I) after the last trip."""
     scene = plan.scene
     tre = (scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
-    F, I = _trip_start(plan)
-    buf = tk.trip_buffers(plan)
-    remaining = plan.n
+    remaining, trips, live = plan.n, 0, 0
     for _ in range(plan.trips_bound):
         if remaining == 0:
             break
-        tk.trip_head(plan, F, I, buf)
-        sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre) if plan.mesh \
-            else None
-        if plan.nee:
-            tk.trip_nee(plan, F, I, buf, sweep)
-            occ = sweep_kernel.treelet_any_hit(buf.shadow_rows, buf.nee_mask, *tre) \
+        trips, live = trips + 1, live + remaining
+        with trace.span("tpupt.trip.issue"):
+            tk.trip_head(plan, F, I, buf)
+            sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre) \
                 if plan.mesh else None
-            tk.trip_tail(plan, F, I, buf, occ=occ)
-        else:
-            tk.trip_tail(plan, F, I, buf, sweep)
-        # TPUPT_DEBUG=1 guards on the trip's outputs (nothing when unset)
-        debug.check_finite("bounce radiance/throughput", *tk.rows(F, tk.RADIANCE + tk.COLOR))
-        debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
-        remaining = int(buf.count)
+            if plan.nee:
+                tk.trip_nee(plan, F, I, buf, sweep)
+                occ = sweep_kernel.treelet_any_hit(buf.shadow_rows, buf.nee_mask, *tre) \
+                    if plan.mesh else None
+                tk.trip_tail(plan, F, I, buf, occ=occ)
+            else:
+                tk.trip_tail(plan, F, I, buf, sweep)
+        if debug.enabled():  # TPUPT_DEBUG=1 guards on the trip's outputs
+            debug.check_finite("bounce radiance/throughput", *tk.rows(F, tk.RADIANCE + tk.COLOR))
+            debug.check_finite("bounce scatter", *tk.rows(F, ("rox", "rdx", "nx")))
+        with trace.span("tpupt.trip.wait"):
+            remaining = int(buf.count)
+    trace.count("trip.live_lanes", live)
+    trace.count("trip.lanes_launched", trips * plan.n)
     return F, I
 
 
 def _render_chained_trips(scene, camera, width, height, spp, max_bounces, rr_start,
                           start_iteration, row0=0, rows=None):
     """``_render_chained`` through the trip kernels."""
-    plan = _trip_plan(scene, camera, width, height, spp=spp, max_bounces=max_bounces,
-                      rr_start=rr_start, iteration=int(start_iteration), chained=True, row0=row0,
-                      rows=rows)
-    chain = tk.unpack_state(*_run_trips(plan))["chain"]
-    # a row of the lane state is a view: a copy lets the state go
-    chain["depth"] = chain["depth"].clone()
-    return _chain_buffers(chain, plan.iteration, spp), chain["segs"].sum()
+    plan, F, I, buf = _trip_setup(scene, camera, width, height, spp=spp,
+                                  max_bounces=max_bounces, rr_start=rr_start,
+                                  iteration=int(start_iteration), chained=True, row0=row0,
+                                  rows=rows)
+    F, I = _run_trips(plan, F, I, buf)
+    with trace.span("tpupt.trip.finish"):
+        chain = tk.unpack_state(F, I)["chain"]
+        # a row of the lane state is a view: a copy lets the state go
+        chain["depth"] = chain["depth"].clone()
+        return _chain_buffers(chain, plan.iteration, spp), chain["segs"].sum()
 
 
 def _partition_perm(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -810,15 +835,17 @@ def trace_sample(scene, camera, width, height, iteration, max_bounces=MAX_BOUNCE
 def _trace_sample_trips(scene, camera, width, height, iteration, max_bounces, rr_start, row0,
                         rows):
     """The forward ``trace_sample`` through the trip kernels."""
-    plan = _trip_plan(scene, camera, width, height, spp=1, max_bounces=max_bounces,
-                      rr_start=rr_start, iteration=int(iteration), chained=False, row0=row0,
-                      rows=rows)
-    out = tk.unpack_state(*_run_trips(plan))
-    state = out["state"]
-    # paths alive at the bounce cap add their raw throughput
-    final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
-    return (final.to_array(), state["normal"].to_array(), state["depth"].clone(),
-            out["chain"]["segs"].sum())
+    plan, F, I, buf = _trip_setup(scene, camera, width, height, spp=1, max_bounces=max_bounces,
+                                  rr_start=rr_start, iteration=int(iteration), chained=False,
+                                  row0=row0, rows=rows)
+    F, I = _run_trips(plan, F, I, buf)
+    with trace.span("tpupt.trip.finish"):
+        out = tk.unpack_state(F, I)
+        state = out["state"]
+        # paths alive at the bounce cap add their raw throughput
+        final = vec.where(state["alive"], state["radiance"] + state["color"], state["radiance"])
+        return (final.to_array(), state["normal"].to_array(), state["depth"].clone(),
+                out["chain"]["segs"].sum())
 
 
 def _diff_bounce(scene, state, seed, bounce, ids, tri_vals, rr_start):
@@ -836,18 +863,20 @@ def _trace_sample_diff_trips(scene, camera, width, height, iteration, max_bounce
     """The differentiable ``trace_sample`` of a scene without emitters
     through ``diff_trip.DiffTrip``: the treelet table rebaked from the
     positions (the sweep traces it; no gradient goes through it) and the
-    slot table built once, differentiable in the positions."""
-    table = None
-    if any(k == OBJ_MESH for k in scene.s_obj_kind):
-        with torch.no_grad():
-            scene = rebake_treelets(scene)
-        table = slot_tri_table(scene)
-    plan = _trip_plan(scene, camera, width, height, spp=1, max_bounces=max_bounces,
-                      rr_start=rr_start, iteration=int(iteration), chained=False, row0=row0,
-                      rows=rows)
-    dp = diff_trip.DiffPlan(plan, None if table is None else table.detach(),
-                            functools.partial(_trip_start, plan),
-                            functools.partial(_diff_bounce, rr_start=rr_start))
+    slot table built once, differentiable in the positions (span
+    ``tpupt.sample.plan``)."""
+    with trace.span("tpupt.sample.plan", device=scene.device):
+        table = None
+        if any(k == OBJ_MESH for k in scene.s_obj_kind):
+            with torch.no_grad():
+                scene = rebake_treelets(scene)
+            table = slot_tri_table(scene)
+        plan = _trip_plan(scene, camera, width, height, spp=1, max_bounces=max_bounces,
+                          rr_start=rr_start, iteration=int(iteration), chained=False, row0=row0,
+                          rows=rows)
+        dp = diff_trip.DiffPlan(plan, None if table is None else table.detach(),
+                                functools.partial(_trip_start, plan),
+                                functools.partial(_diff_bounce, rr_start=rr_start))
     return diff_trip.trace(dp, table)
 
 
@@ -863,7 +892,8 @@ def _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
             scene, camera, width, height, it, max_bounces, differentiable=differentiable,
             rr_start=rr_start, intersect_fn=intersect_fn, any_hit=any_hit, row0=row0, rows=rows,
             grad_psum_axis=grad_psum_axis, grad_psum_overlap=grad_psum_overlap)
-        buffers = accumulate(buffers, color, normal, depth)
+        with trace.span("tpupt.sample.accumulate"):
+            buffers = accumulate(buffers, color, normal, depth)
         rays = rays + r
     return buffers, rays
 
@@ -913,23 +943,26 @@ def render_image(
     ``render_route`` picks the loop: the trip kernels for a forward render
     through the default hit pass and shadow sweep, the differentiable trip
     for a differentiable render of a scene without emitters through the
-    default ids pass, else ``_bounce_body``."""
-    if device is not None:
-        scene = scene.to(device)
-    camera = camera.to(scene.device)
-    band = dict(row0=row0, rows=rows)
-    if differentiable:
-        return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, True, intersect_fn, any_hit, **band,
-                               grad_psum_axis=grad_psum_axis,
-                               grad_psum_overlap=grad_psum_overlap)
-    with torch.no_grad():
-        if not chain_samples:
+    default ids pass, else ``_bounce_body``.  The call is span
+    ``tpupt.render`` of ``utils.trace``."""
+    with trace.span("tpupt.render"):
+        if device is not None:
+            scene = scene.to(device)
+        camera = camera.to(scene.device)
+        band = dict(row0=row0, rows=rows)
+        if differentiable:
             return _render_samples(scene, camera, width, height, spp, max_bounces, rr_start,
-                                   start_iteration, False, intersect_fn, any_hit, **band)
-        if render_route(scene, False, intersect_fn, any_hit) == "trip":
-            return _render_chained_trips(scene, camera, width, height, spp, max_bounces,
-                                         rr_start, start_iteration, **band)
-        return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
-                               start_iteration, intersect_fn or intersect_scene_ids, any_hit,
-                               **band)
+                                   start_iteration, True, intersect_fn, any_hit, **band,
+                                   grad_psum_axis=grad_psum_axis,
+                                   grad_psum_overlap=grad_psum_overlap)
+        with torch.no_grad():
+            if not chain_samples:
+                return _render_samples(scene, camera, width, height, spp, max_bounces,
+                                       rr_start, start_iteration, False, intersect_fn, any_hit,
+                                       **band)
+            if render_route(scene, False, intersect_fn, any_hit) == "trip":
+                return _render_chained_trips(scene, camera, width, height, spp, max_bounces,
+                                             rr_start, start_iteration, **band)
+            return _render_chained(scene, camera, width, height, spp, max_bounces, rr_start,
+                                   start_iteration, intersect_fn or intersect_scene_ids,
+                                   any_hit, **band)

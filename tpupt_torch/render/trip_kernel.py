@@ -47,9 +47,10 @@ named above, so the CPU tests hold the trip route to the body route and
 to the JAX package.  ``integrator``, which runs the trip loop, builds the
 plan and the start state and hands the twins its own ``_bounce_shade``,
 ``_bounce_finish``, ``_nee_resolve`` and ``_chain_step`` in the plan, so
-this module does not import it.  Each wrapper adds one to its count in
-``LAUNCHES`` where it launches its kernel (kept in a dict, so that a
-caller may wrap the module's functions to record their inputs).
+this module does not import it.  Each wrapper counts its kernel's
+launches in ``utils.trace.launch_counts()``; callers reach the wrappers
+through this module's attributes, so that a caller may wrap them to record
+their inputs.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from tpupt_torch.core.camera import viewport
 from tpupt_torch.core.types import OBJ_MESH, OBJ_SPHERE, PRIM_NONE, PRIM_SPHERE, Camera, SceneArrays
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.render.intersect import _blank_ids, _sphere_pass, hit_record, sphere_occlusion
+from tpupt_torch.utils import trace
 
 # the float rows of the lane state: the path's state (ray, radiance,
 # throughput, first-hit normal and depth), the chained loop's running
@@ -96,7 +98,6 @@ MAT_ROW = 9  # type, albedo, fuzz, ior, emission
 LIGHT_ROW = 8  # a sphere light: centre, radius, emission, object id
 TRI_LIGHT_ROW = 11  # an emissive triangle: p0, e1, e2, object id, material
 _NO_RR = 2**31 - 1  # rr_start for no roulette: no bounce reaches it
-LAUNCHES = {"trip_head": 0, "trip_nee": 0, "trip_tail": 0}  # kernel launches in this process
 
 
 def rows(F: torch.Tensor, keys) -> list[torch.Tensor]:
@@ -532,8 +533,8 @@ def _sweep_ptrs(name, plan: TripPlan, F, sweep):
 def trip_head(plan: TripPlan, F, I, buf: TripBuffers) -> TripBuffers:
     """The sphere pass and the sweep's rows for the lane state (F, I):
     writes ``buf.hrec``, ``buf.hint`` and, for a scene with a mesh,
-    ``buf.rows`` and ``buf.act_p``.  Launches are counted in
-    ``LAUNCHES["trip_head"]``."""
+    ``buf.rows`` and ``buf.act_p``.  Launches are counted under
+    "trip_head" (``utils.trace``)."""
     if F.device.type == "cpu":
         return trip_head_plain(plan, F, I, buf)
     lib = _check("trip_head", plan, F, I, buf)
@@ -545,7 +546,7 @@ def trip_head(plan: TripPlan, F, I, buf: TripBuffers) -> TripBuffers:
             buf.rows.data_ptr() if plan.mesh else None,
             buf.act_p.data_ptr() if plan.mesh else None, kernels.stream_of(F))
         kernels.check(lib, err, "trip_head")
-        LAUNCHES["trip_head"] += 1
+        trace.launched("trip_head")
     return buf
 
 
@@ -557,8 +558,8 @@ def trip_nee(plan: TripPlan, F, I, buf: TripBuffers, sweep=None):
     background, the first hit's normal and depth, shading, the
     MIS-weighted emission and NEE's terms with their sphere tests; writes
     ``buf.alive_next``, ``buf.nee_contrib``, ``buf.nee_mask`` and, with a
-    mesh, ``buf.nee_rows``.  Returns (F, I).  Launches are counted in
-    ``LAUNCHES["trip_nee"]``."""
+    mesh, ``buf.nee_rows``.  Returns (F, I).  Launches are counted under
+    "trip_nee" (``utils.trace``)."""
     if F.device.type == "cpu":
         return trip_nee_plain(plan, F, I, buf, sweep)
     lib = _check("trip_nee", plan, F, I, buf)
@@ -574,7 +575,7 @@ def trip_nee(plan: TripPlan, F, I, buf: TripBuffers, sweep=None):
             buf.nee_mask.data_ptr(), buf.nee_rows.data_ptr() if plan.mesh else None,
             kernels.stream_of(F))
         kernels.check(lib, err, "trip_nee")
-        LAUNCHES["trip_nee"] += 1
+        trace.launched("trip_nee")
     return F, I
 
 
@@ -587,7 +588,7 @@ def trip_tail(plan: TripPlan, F, I, buf: TripBuffers, sweep=None, occ=None):
     ``buf`` and ``occ`` (``treelet_any_hit``'s output on ``buf.nee_rows``,
     None for a scene without meshes) added to the radiance, roulette.
     Then, chained, the fold and restart.  Returns (F, I).  Launches are
-    counted in ``LAUNCHES["trip_tail"]``."""
+    counted under "trip_tail" (``utils.trace``)."""
     if F.device.type == "cpu":
         return trip_tail_plain(plan, F, I, buf, sweep, occ)
     lib = _check("trip_tail", plan, F, I, buf)
@@ -616,12 +617,7 @@ def trip_tail(plan: TripPlan, F, I, buf: TripBuffers, sweep=None, occ=None):
             int(plan.chained), plan.n_pad, len(plan.scene.s_light_objs),
             plan.scene.s_tri_light_count, *nee, buf.count.data_ptr(), kernels.stream_of(F))
         kernels.check(lib, err, "trip_tail")
-        LAUNCHES["trip_tail"] += 1
+        trace.launched("trip_tail")
     else:
         buf.count.zero_()
     return F, I
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches so far in this process."""
-    return dict(LAUNCHES)
