@@ -37,12 +37,16 @@ ajax-white-hi.json's 327,680 triangles, the any-hit kernels' occlusion on
 that scene's shadow rays against the twin and the BVH walk, and the
 brute-force render,
 which traces its shadow rays itself, against the render on bunny.json
-and cornell_area.json.  Last, the bench harness (``tpupt_torch.bench``):
+and cornell_area.json.  Then the bench harness (``tpupt_torch.bench``):
 ``run_config`` for each of its seven configs at full size, the sweep and
 the trip kernels held against their twins on trips of the full
 multi_mesh.json, ajax-white.json and ajax-white-hi.json renders, multimesh's sharded branch on two gloo
-processes and ``python -m tpupt_torch.bench.scaling 2``.  Every phase
-prints its wall.
+processes and ``python -m tpupt_torch.bench.scaling 2``.  Last, the tail
+handover: three_balls.json at 512^2, 64 spp, 50 bounces (more lanes than
+one resident wave of trip_drain) through its issued sphere-only trips,
+two of them held to their twins, and trip_drain, held to
+trip_drain_plain from the render's own handover state; the render equal
+to the issued trips run to the end.  Every phase prints its wall.
 
     python chip_smoke.py
 
@@ -58,8 +62,9 @@ it fails before printing any result.  Its standard output ends with:
     its launches on its main path (the forward render; the fwd+bwd step
     for the payload form and the differentiable trip's two kernels; the
     cornell_area render for the any-hit kernel and trip_nee; the
-    cornell_area fwd+bwd step, the body route, for slot_scatter), and the trip
-    kernels' (the forward render),
+    cornell_area fwd+bwd step, the body route, for slot_scatter; the
+    three_balls render for trip_drain), and the trip kernels' (the forward
+    render),
     its measured error and times, and its bound (the work its inputs need
     at the card's published peaks), and its launches in each CLI render,
     in a fit step and in each of phase 16's band renders; for the trip
@@ -2833,9 +2838,12 @@ for name in harness.CONFIGS:
     assert info["launches_per_call"]["treelet_any_hit"] == 0, (name, info)  # no mesh light
     # the trip route on every forward config, cornell's (sphere NEE: the
     # trip_nee kernel) too; diff (differentiable, no emitter, no mesh)
-    # takes the differentiable trip
+    # takes the differentiable trip; sphere (no emitter, no mesh, 128^2:
+    # one resident wave of trip_drain) hands every lane over at trip 0
     trip_route = name != "diff"
-    assert (info["launches_per_call"]["trip_tail"] > 0) == trip_route, (name, info)
+    drained = info["launches_per_call"]["trip_drain"] > 0
+    assert drained == (name == "sphere"), (name, info)
+    assert (info["launches_per_call"]["trip_tail"] > 0 or drained) == trip_route, (name, info)
     assert (info["launches_per_call"]["trip_nee"] > 0) == (name == "cornell"), (name, info)
     assert (info["launches_per_call"]["diff_trip_fwd"] > 0) == (name == "diff"), (name, info)
     assert (info["launches_per_call"]["diff_trip_bwd"]
@@ -2946,6 +2954,135 @@ if proc.returncode != 0:
 scaling_line = json.loads(proc.stdout.strip().splitlines()[-1])
 assert scaling_line["devices"] == 2 and scaling_line["device"] == torch.cuda.get_device_name(0)
 print(f"python -m tpupt_torch.bench.scaling 2: {json.dumps(scaling_line)}  [{smi}]")
+
+phase("19 the tail handover: three_balls.json 512^2, 64 spp, 50 bounces (issued trips, then "
+      "trip_drain); its trips 0 and 2 against the twins; trip_drain against trip_drain_plain "
+      "from the render's handover state; the render against the issued trips run to the end")
+TB_SIZE, TB_SPP, TB_BOUNCES = 512, 64, 50  # more lanes than one resident wave of trip_drain
+tb_desc = scene_from_json(os.path.join(locate_asset_path(), "scenes", "three_balls.json"))
+tb_scene = tb_desc.build(device=DEV)
+assert integrator.render_route(tb_scene) == "trip"
+handover, drain_w, wave_w = {}, trip_kernel.trip_drain, trip_kernel.drain_wave
+
+
+def recording_drain(plan, F, I, buf, trips):
+    handover.update(plan=plan, F=F.clone(), I=I.clone(), trips=trips)
+    out = drain_w(plan, F, I, buf, trips)
+    handover.update(F_after=F.clone(), I_after=I.clone(), listed=int(buf.drain_len),
+                    cap=buf.drain_cap, left=int(buf.count))
+    return out
+
+
+def tb_render():
+    return tpupt_torch.render_image(tb_scene, tb_desc.camera, TB_SIZE, TB_SIZE, spp=TB_SPP,
+                                    max_bounces=TB_BOUNCES)
+
+
+tb_render()  # warm-up
+trip_kernel.trip_drain = recording_drain
+try:
+    reset_counts()
+    (tb_buf, tb_rays), tb_trips, tb_kept = record_trip_inputs(tb_render, {0, 2})
+    tb_launches = read_counts()
+finally:
+    trip_kernel.trip_drain = drain_w
+tb_rays = int(tb_rays)
+# the main path of an emitter-free sphere render: issued trips (trip_head,
+# trip_tail; no sweep, no NEE), then one trip_drain once the lanes left fit
+# in its wave; the count it left reads 0
+assert tb_launches["trip_drain"] == 1, tb_launches
+assert tb_launches["trip_head"] == tb_launches["trip_tail"] == tb_trips > 2, tb_launches
+assert tb_launches["trip_nee"] == tb_launches["treelet_closest_hit"] == 0, tb_launches
+assert tb_launches["treelet_any_hit"] == 0, tb_launches
+assert handover["trips"] == handover["plan"].trips_bound - tb_trips, handover["trips"]
+assert handover["left"] == 0 and 0 < handover["listed"] <= handover["cap"], handover
+_, tb_wall = timed(tb_render)
+trip_kernel.drain_wave = lambda plan: 0  # no list: the issued trips to the end
+try:
+    reset_counts()
+    (tb_want, tb_want_rays), tb_issued_wall = timed(tb_render)
+    tb_issued = read_counts()
+finally:
+    trip_kernel.drain_wave = wave_w
+assert tb_issued["trip_drain"] == 0 and tb_issued["trip_tail"] > tb_trips, tb_issued
+assert int(tb_want_rays) == tb_rays, (int(tb_want_rays), tb_rays)
+for key in ("color", "normal", "depth"):
+    assert torch.equal(getattr(tb_buf, key), getattr(tb_want, key)), f"handover != issued: {key}"
+print(f"three_balls {TB_SIZE}^2, {TB_SPP} spp: {tb_rays} segments; {tb_trips} issued trips, then "
+      f"trip_drain on {handover['listed']} lanes (wave {handover['cap']}), 0 left; colour, normal, "
+      f"depth and segments equal to the issued trips run to the end ({tb_issued['trip_tail']} "
+      f"trips); {tb_wall * 1e3:.1f} ms a render against {tb_issued_wall * 1e3:.1f} issued  [{smi}]",
+      flush=True)
+del tb_want
+for t in (0, 2):
+    trip_checks[f"three_balls_trip{t}"] = compare_trip(
+        f"three_balls {TB_SIZE}^2, {TB_SPP} spp trip {t}", tb_kept.pop(t))
+# trip_drain and its twin from the state the render handed over, each with
+# a list of its own; the kernel lists the lanes in warp order, the twin in
+# lane order
+tb_plan, F0, I0, tb_left_trips = (handover[k] for k in ("plan", "F", "I", "trips"))
+bk, bp = (trip_kernel.trip_buffers(tb_plan, drain=True) for _ in range(2))
+Fk, Ik, Fp, Ip = F0.clone(), I0.clone(), F0.clone(), I0.clone()
+trip_kernel.trip_drain(tb_plan, Fk, Ik, bk, tb_left_trips)
+torch.cuda.synchronize()
+_, drain_plain_s = timed(lambda: trip_kernel.trip_drain_plain(tb_plan, Fp, Ip, bp, tb_left_trips))
+require_equal_state("trip_drain three_balls", (Fk, Ik), (Fp, Ip))
+require_equal("trip_drain three_balls count and length", [bk.count, bk.drain_len],
+              [bp.count, bp.drain_len])
+n_listed = int(bk.drain_len)
+assert torch.equal(bk.drain_ids[:n_listed].sort().values, bp.drain_ids[:n_listed]), \
+    "trip_drain listed other lanes than its twin"
+require_equal_state("trip_drain three_balls vs the render's call", (Fk, Ik),
+                    (handover["F_after"], handover["I_after"]))
+
+
+def restore_drain():
+    Fk.copy_(F0)
+    Ik.copy_(I0)
+
+
+drain_ms = events_ms(restore_drain, lambda: trip_kernel.trip_drain(tb_plan, Fk, Ik, bk,
+                                                                   tb_left_trips), 5)
+drain_dev_ms = kernel_ms(restore_drain, lambda: trip_kernel.trip_drain(tb_plan, Fk, Ik, bk,
+                                                                       tb_left_trips), 5)
+restore_drain()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    trip_kernel.trip_drain(tb_plan, Fk, Ik, bk, tb_left_trips)
+    torch.cuda.synchronize()
+drain_prof_ms = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 1e3
+                 for k in ("trip_drain_compact_kernel", "trip_drain_kernel")}
+if not any(drain_prof_ms.values()):  # after phase 16 the profiler may record no device time
+    drain_prof_ms = dict.fromkeys(drain_prof_ms)
+# the work (PERF.md section 2's rule): every segment the drain traces, its
+# sphere tests, the winner's t and normal and the body; every sample it
+# ends, the fold; bytes: every lane's done flag (the compaction), each
+# listed lane's id written and read and its state read and written once
+ik = trip_kernel.I_KEYS
+seg_d = Ik[ik.index("segs")].long() - I0[ik.index("segs")].long()
+drain_segs, drain_longest = int(seg_d.sum()), int(seg_d.max())
+drain_folds = int((Ik[ik.index("k")].long() - I0[ik.index("k")].long()).sum())
+drain_flops = (drain_segs * (tb_plan.tables[1] * HEAD_SPHERE_FLOPS + HEAD_WIN_FLOPS
+                             + TAIL_LIVE_FLOPS) + drain_folds * TAIL_FOLD_FLOPS)
+drain_bytes = tb_plan.n * 4 + n_listed * (8 + (len(trip_kernel.F_KEYS) + len(ik)) * 8)
+drain_bound_ms, drain_bound_by = bound(drain_flops, drain_bytes)
+drain_check = dict(
+    handover_trip=tb_trips, lanes=n_listed, wave=handover["cap"], segments=drain_segs,
+    render_segments=tb_rays, samples_ended=drain_folds, longest_lane_trips=drain_longest,
+    ms=drain_ms, device_ms=drain_dev_ms, profiler_ms=drain_prof_ms, plain_ms=drain_plain_s * 1e3,
+    bytes=drain_bytes, flops=drain_flops, bound_ms=drain_bound_ms, bound_by=drain_bound_by,
+    share_of_bound=drain_bound_ms / drain_dev_ms, max_abs_err=0.0, render_ms=tb_wall * 1e3,
+    issued_render_ms=tb_issued_wall * 1e3, issued_trips=tb_issued["trip_tail"])
+print(f"trip_drain from the handover state: the whole state, the count and the list equal to "
+      f"trip_drain_plain's and to the render's call; {drain_segs} segments "
+      f"({drain_segs / tb_rays:.1%} of the render's), {drain_folds} samples ended, the longest "
+      f"lane {drain_longest} trips; "
+      f"{drain_ms:.4f} ms a call (events), {drain_dev_ms:.4f} ms on the device (profiler: "
+      + (", ".join(f"{k} {v:.4f}" for k, v in drain_prof_ms.items())
+         if drain_prof_ms["trip_drain_kernel"] is not None else "not measured")
+      + f"), twin {drain_plain_s * 1e3:.1f} ms; "
+      f"{drain_bytes / 1e6:.1f} MB, {drain_flops / 1e9:.4f} GFLOP; bound {drain_bound_ms:.4f} ms "
+      f"({drain_bound_by}), {drain_bound_ms / drain_dev_ms:.1%} of it  [{smi}]", flush=True)
+del tb_scene, tb_buf, tb_kept, handover, F0, I0, Fk, Ik, Fp, Ip, bk, bp
 phase("report")
 print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_WALLS.items())
       + f"; total {time.perf_counter() - T_START:.1f} s")
@@ -3056,6 +3193,22 @@ report = {
         inputs={k: dict(v["trip_nee"], work=v["work"]) for k, v in trip_checks.items()
                 if "trip_nee" in v},
         path_sums={k: v["trip_nee"] for k, v in path_sums.items() if "trip_nee" in v},
+    )] + [dict(
+        # no TPU kernel: the JAX package runs every trip over every lane in
+        # the while_loop of _render_chained (tpupt/render/integrator.py:1001);
+        # its main path the tail of an emitter-free sphere render, phase 19's
+        # three_balls render (its launches); the numbers are that render's
+        # handover state's, held against trip_drain_plain from it
+        name="trip_drain", route="cuda", source="tpupt_torch/accel/csrc/trip_kernels.cu",
+        replaces="tpupt/render/integrator.py:1001", launches=tb_launches["trip_drain"],
+        **{k: drain_check[k]
+           for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None,
+        cli_launches={k: v["launches"].get("trip_drain") for k, v in cli.items()},
+        fit_step_launches=fit_per_step["trip_drain"], band_launches=band_launches("trip_drain"),
+        harness_launches_per_call={k: v["launches_per_call"]["trip_drain"]
+                                   for k, v in harness_info.items()},
+        inputs={"three_balls_handover": drain_check},
     )] + [dict(
         # not Pallas in the JAX package: the differentiable trace_sample's
         # lax.scan over _bounce_body with refine_hit and its transpose

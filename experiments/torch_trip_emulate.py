@@ -8,14 +8,17 @@ g++ compiles the source against stubs of the CUDA built-ins it uses (the
 launch qualifiers, the thread and block indices, the warp vote, the
 atomic, ``rsqrtf``): each launch ``k<<<grid, block, 0, stream>>>(args)``
 becomes a loop over the blocks and threads, and the warp vote counts one
-thread at a time.  What a CTA of ``trip_nee`` or ``trip_head`` does
-together cannot run one thread at a time, so their CTA loops (``nee_cta``,
-``head_cta``) are replaced by plain ones (``NEE_CTA``, ``HEAD_CTA``): each
-block's thread 0 runs the kernel's own staging, then its warps' chunks in
-turn, each thread's flags and closing stores and each live lane (its hit,
-shading and NEE terms; its sphere pass and rows) in order; the warp's
-queue of live lanes runs only on the card.  The library goes into a temporary directory and is
-called through ctypes on CPU tensors by the wrappers of
+thread at a time.  What a CTA of ``trip_nee``, ``trip_head`` or
+``trip_drain`` does together cannot run one thread at a time, so their CTA
+loops (``nee_cta``, ``head_cta``, ``drain_cta``) are replaced by plain ones
+(``NEE_CTA``, ``HEAD_CTA``, ``DRAIN_CTA``): each block's thread 0 runs the
+kernel's own staging, then its warps' chunks in turn, each thread's flags
+and closing stores and each live lane (its hit, shading and NEE terms; its
+sphere pass and rows; its drained trips) in order; ``trip_drain``'s list
+takes one lane at a time (``DRAIN_LIST``).  The warp's queue of live lanes
+and the list's ranks behind one atomic a warp run only on the card.  The
+library goes into a temporary directory and is called through ctypes on
+CPU tensors by the wrappers of
 ``tpupt_torch.render.trip_kernel`` (their CPU branch to the twins taken
 out).  Both sides then use correctly rounded float32 sqrt, rsqrt (as
 1 / sqrt), sin and cos: the stubs' (computed in double) and torch's,
@@ -202,6 +205,33 @@ inline void head_cta(const HeadArgs& a) {
     head_run<kStaged>(a, base, live);
   }
 }"""
+# trip_drain's list one thread at a time: each live lane takes the next
+# entry (the warp's ranks behind one atomic are what only the card runs)
+DRAIN_LIST = """inline void drain_list(const DrainArgs& d, int i, bool live) {
+  if (!live) return;
+  const int at = atomicAdd(d.len, 1);
+  if (at < d.cap) d.ids[at] = i;
+}"""
+# trip_drain's CTA the same way: each thread's share of the staging, then
+# each thread's listed lane drained in turn, the lanes left counted one by
+# one, and by block 0 those the list could not hold
+DRAIN_CTA = """template <bool kStaged>
+inline void drain_cta(const DrainArgs& d) {
+  if (threadIdx.x != 0) return;
+  const int listed = min(*d.len, d.cap);
+  if ((int)blockIdx.x * kThreads >= listed) return;
+  for (unsigned t = 0; kStaged && t < (unsigned)kThreads; ++t) {
+    threadIdx.x = t;
+    stage_table(d.t.tab, d.n_stage);
+  }
+  for (unsigned t = 0; t < (unsigned)kThreads; ++t) {
+    threadIdx.x = t;
+    const int slot = blockIdx.x * kThreads + t;
+    if (slot < listed && drain_lane<kStaged>(d, d.ids[slot])) atomicAdd(d.t.count, 1);
+  }
+  threadIdx.x = 0;
+  if (blockIdx.x == 0 && *d.len > d.cap) atomicAdd(d.t.count, *d.len - d.cap);
+}"""
 # an entry the tests call: the CDF search alone
 EXPORTS = """
 extern "C" int emu_cdf_index(const float* cum, int n, float u) { return cdf_index(cum, n, u); }
@@ -221,7 +251,9 @@ def build(out_dir, subs=()) -> ctypes.CDLL:
     """The emulation library of trip_kernels.cu with each (old, new) of
     ``subs`` applied (each must match once), its entries declared as
     ``kernels.bind`` declares them."""
-    src = replace_functions(source("trip_kernels.cu"), {"nee_cta": NEE_CTA, "head_cta": HEAD_CTA})
+    src = replace_functions(source("trip_kernels.cu"), {"nee_cta": NEE_CTA, "head_cta": HEAD_CTA,
+                                                        "drain_list": DRAIN_LIST,
+                                                        "drain_cta": DRAIN_CTA})
     for old, new in subs:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
@@ -232,17 +264,18 @@ def build(out_dir, subs=()) -> ctypes.CDLL:
     lib.tpupt_trip_head.argtypes = [P, P, I, I, P, I, P, P, P, P, P]
     lib.tpupt_trip_nee.argtypes = [P, P, I, I] + [P] * 9 + [I] * 7 + [P] * 5
     lib.tpupt_trip_tail.argtypes = [P, P, I] + [P] * 9 + [I] * 3 + [P] + [I] * 11 + [P] * 6
+    lib.tpupt_trip_drain.argtypes = [P, P, I, P] + [I] * 5 + [P] + [I] * 9 + [P, I, P, P, P]
     return lib
 
 
 def emulated_wrappers(lib) -> dict:
-    """trip_head, trip_nee and trip_tail as the module defines them, with
+    """trip_head, trip_nee, trip_tail and trip_drain as the module defines them, with
     the CPU branch to the twins and the device checks taken out and the
     emulation library in place of the kernels'."""
     kernels.stream_of = lambda t: None
     kernels.check = lambda _lib, err, what: None if err == 0 else sys.exit(f"{what}: {err}")
     out = {}
-    for name in ("trip_head", "trip_nee", "trip_tail"):
+    for name in ("trip_head", "trip_nee", "trip_tail", "trip_drain"):
         src = inspect.getsource(getattr(trip_kernel, name))
         src = src.replace('F.device.type == "cpu"', "False")
         scope = dict(vars(trip_kernel), _check=lambda *a: lib)

@@ -12,6 +12,10 @@ benchmark's per-layer metrics read them.
   and ``tpupt.diff.backward`` a sample and one ``tpupt.diff.wait`` a
   bounce; the spans sit in the profiler's events under the caller's
   ``record_function``.
+* A render that hands its tail to ``trip_drain`` (its list sized by hand:
+  the CPU has none) records one ``tpupt.trip.drain`` and
+  ``trip.drain_lanes`` under the profiler and nothing without it, and the
+  three drain readers read None where no drain was recorded.
 * One launch count for every hand-written kernel,
   ``trace.launch_counts()``.
 * The benchmark's readers of the spans and counters, through its harness
@@ -144,6 +148,85 @@ def test_trip_counters_under_the_profiler(monkeypatch, mode):
     assert 0 < c["trip.live_lanes"] < c["trip.lanes_launched"]
 
 
+def _handover(monkeypatch):
+    """Every emitter-free sphere plan's list holds 40 lanes (the CPU has
+    none), so its render hands its last lanes to the drain."""
+    monkeypatch.setattr(tk, "drain_wave", lambda plan: 40)
+
+
+@pytest.mark.parametrize("profiled", [True, False], ids=["profiler", "no profiler"])
+def test_drain_span_and_counters(monkeypatch, profiled):
+    """A chained render that hands over: under the profiler one
+    tpupt.trip.drain (the handover's only record: no counter of drains)
+    and trip.drain_lanes the lanes handed over (at most the list's 40),
+    the issued trips' counters short of the render's segments by what the
+    drain traced; without it nothing."""
+    _handover(monkeypatch)
+    scene, cam = _scene()
+    tails = _counting(monkeypatch, tk, "trip_tail")
+    render = lambda: tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=8)  # noqa: E731
+    _, rays = _profiled(render)[0] if profiled else render()
+    snap = trace.snapshot()
+    if not profiled:
+        assert snap == dict(spans={}, counters={}) and len(tails) > 0
+        return
+    c, s = snap["counters"], snap["spans"]
+    assert s["tpupt.trip.drain"]["count"] == 1 and s["tpupt.trip.drain"]["host_s"] > 0
+    assert "trip.drains" not in c and 0 < c["trip.drain_lanes"] <= 40
+    assert s["tpupt.trip.wait"]["count"] == s["tpupt.trip.issue"]["count"] == len(tails) > 0
+    assert c["trip.lanes_launched"] == len(tails) * W * H
+    assert c["trip.drain_lanes"] <= int(rays) - c["trip.live_lanes"]
+
+
+def _reader(name):
+    from h100bench import run
+
+    return run.load_file(os.path.join(ROOT, "h100bench", "metrics", name + ".py"))
+
+
+def test_drain_readers(monkeypatch):
+    """trip_drain_ms.render and trip_drain_lanes.render read None where
+    the program recorded no drain (a program without the span and
+    counter, or a render that never handed over), and a render's host ms
+    and lanes over the window's renders where it did."""
+    from types import SimpleNamespace
+
+    ctx = SimpleNamespace(jobs=2)
+    ms, lanes = _reader("trip_drain_ms.render"), _reader("trip_drain_lanes.render")
+    assert ms.read(ctx) is None and lanes.read(ctx) is None
+    scene, cam = _scene()
+    _profiled(lambda: tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=6))
+    assert "tpupt.trip.issue" in trace.snapshot()["spans"]
+    assert ms.read(ctx) is None and lanes.read(ctx) is None  # no list on the CPU: no handover
+    trace.reset()
+    _handover(monkeypatch)
+    for _ in range(2):
+        _profiled(lambda: tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=6))
+    snap = trace.snapshot()
+    assert ms.read(ctx) == snap["spans"]["tpupt.trip.drain"]["host_s"] * 1e3 / 2 > 0
+    assert lanes.read(ctx) == snap["counters"]["trip.drain_lanes"] / 2 > 0
+
+
+def test_drain_kernel_reader():
+    """trip_drain_kernel_ms.render reads the device ms a render of the
+    drain's two kernels, None from a trace without them; the trip kernels'
+    readers match neither of them."""
+    from types import SimpleNamespace
+
+    from h100bench.trace import Reduced
+
+    drain_ms, trip_ms = _reader("trip_drain_kernel_ms.render"), _reader("trip_kernels_ms.render")
+    trips = {"void (anonymous namespace)::trip_head_kernel<true>(HeadArgs)": [9, 0.004],
+             "void (anonymous namespace)::trip_tail_kernel<false>(TailArgs)": [9, 0.012]}
+    ctx = SimpleNamespace(jobs=2, trace=Reduced(ops=dict(trips)))
+    assert drain_ms.read(ctx) is None and trip_ms.read(ctx) == pytest.approx(8.0)
+    ctx.trace.ops.update({
+        "void (anonymous namespace)::trip_drain_compact_kernel(DrainArgs)": [1, 0.0001],
+        "void (anonymous namespace)::trip_drain_kernel<true>(DrainArgs)": [1, 0.0233]})
+    assert drain_ms.read(ctx) == pytest.approx(11.7) and trip_ms.read(ctx) == pytest.approx(8.0)
+    assert not any(t in d for t in trip_ms.KERNELS for d in drain_ms.KERNELS)
+
+
 @pytest.mark.parametrize("mesh", [False, True], ids=["spheres", "spheres and a mesh"])
 def test_diff_spans_a_sample_and_a_bounce(monkeypatch, mesh):
     """A differentiable render and its gradient: one sample.plan,
@@ -224,7 +307,8 @@ def test_one_launch_count_for_every_kernel():
     counts = trace.launch_counts()
     assert set(counts) == {"treelet_closest_hit", "treelet_closest_hit(payload=True)",
                            "treelet_any_hit", "winner_step", "trip_head", "trip_nee",
-                           "trip_tail", "diff_trip_fwd", "diff_trip_bwd", "slot_scatter"}
+                           "trip_tail", "trip_drain", "diff_trip_fwd", "diff_trip_bwd",
+                           "slot_scatter"}
     scene, cam = _scene(mesh=True)
     tpupt_torch.render_image(scene, cam, 8, 8, 1, max_bounces=3)
     assert trace.launch_counts() == counts  # the CPU runs the twins

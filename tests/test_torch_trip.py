@@ -21,6 +21,9 @@ body route's own functions, so:
   2^31 and above included;
 * ``trip_head`` leaves a dead lane's record and ray rows as they were and
   writes its -BIG seed and mask;
+* ``trip_drain_plain`` after k twin trips equals the twin trip loop run
+  to the end (the tail handover), and only plans without a mesh or
+  emitters hand over;
 * ``render_route`` and the renders themselves take the trip route exactly
   for forward renders through the default hit pass and, on a scene with
   emitters, the default shadow sweep (the NEE trip itself is held in
@@ -36,6 +39,7 @@ inside the test that needs it, so on a machine with a card and no JAX:
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -44,6 +48,7 @@ import torch
 from tpupt_torch.accel import packets, sweep_kernel
 from tpupt_torch.bench import harness as ph
 from tpupt_torch.core import math3d as m3
+from tpupt_torch.core import vec
 from tpupt_torch.core.camera import make_camera
 from tpupt_torch.core.types import OBJ_MESH
 from tpupt_torch.cpu_ref.renderer import intersect_scene_ids_brute
@@ -53,6 +58,7 @@ from tpupt_torch.render.intersect import (intersect_scene_ids, intersect_scene_i
                                           slot_tri_table)
 from tpupt_torch.scene.bake import rebake_treelets
 from tpupt_torch.scene.description import SceneDescription
+from tpupt_torch.scene.json_parser import scene_from_json
 from tpupt_torch.scene.procedural import icosphere
 from tpupt_torch.utils import trace
 
@@ -488,6 +494,155 @@ def test_route_body_takes_no_trip_kernel(spheres, head_calls):
     assert not head_calls
 
 
+# --- the tail handover (trip_drain) --------------------------------------------
+
+DRAIN_W, DRAIN_H = 24, 16
+# (the plan's settings, where the drain takes over: 0 at trip 0, 1 at the
+# last trip but one, between in proportion) on the nine spheres
+DRAIN_CASES = {
+    "chained, from trip 0": (dict(spp=4, max_bounces=12, rr_start=None, chained=True), 0.0),
+    "chained, from a middle trip": (dict(spp=4, max_bounces=12, rr_start=None, chained=True), 0.5),
+    "chained, from the last trip but one": (
+        dict(spp=4, max_bounces=12, rr_start=None, chained=True), 1.0),
+    "per sample, from a middle trip": (
+        dict(spp=1, max_bounces=12, rr_start=None, chained=False), 0.5),
+    "chained with roulette, from a middle trip": (
+        dict(spp=3, max_bounces=10, rr_start=2, chained=True), 0.5),
+}
+
+
+def issued_trips(head, tail, plan, F, I, buf, stop=None):
+    """Issued trips (``head``, then ``tail``) on (F, I) until no lane is
+    left to trace, the plan's bound or ``stop`` trips; returns the trips."""
+    trips, left = 0, plan.n
+    while left and trips < plan.trips_bound and (stop is None or trips < stop):
+        head(plan, F, I, buf)
+        tail(plan, F, I, buf)
+        trips += 1
+        left = int(buf.count)
+    return trips
+
+
+def trip_outputs(plan, F, I) -> dict:
+    """What the trip loop renders from its state: colour, normal and depth
+    (chained: the running averages; per sample: the path's, with the raw
+    throughput of paths alive at the bounce cap) and the segments."""
+    out = trip_kernel.unpack_state(F, I)
+    if plan.chained:
+        ch = out["chain"]
+        col, nrm, depth = ch["color"], ch["normal"], ch["depth"]
+    else:
+        st = out["state"]
+        col = vec.where(st["alive"], st["radiance"] + st["color"], st["radiance"])
+        nrm, depth = st["normal"], st["depth"]
+    return dict(color=col.to_array(), normal=nrm.to_array(), depth=depth,
+                segs=int(out["chain"]["segs"].sum()))
+
+
+def drain_against_issued(head, tail, drain, case, device="cpu"):
+    """The nine spheres' trip loop (``DRAIN_CASES[case]``) through
+    ``head`` and ``tail`` run to the end, and again with ``drain`` taking
+    over after k issued trips, the list holding every lane.  Returns
+    {want, got: ``trip_outputs``; F, I: the states at the end (want, got);
+    lanes: those handed over; drain_len, left: what the drain read and
+    left in ``buf.count``; k, trips: its trip and the loop's}."""
+    kw, where = DRAIN_CASES[case]
+    scene, cam = nine_spheres(device)
+
+    def setup():
+        return integrator._trip_setup(scene, cam, DRAIN_W, DRAIN_H, iteration=5, **kw)
+
+    plan, F, I, buf = setup()
+    trips = issued_trips(head, tail, plan, F, I, buf)
+    plan, F2, I2, buf2 = setup()
+    k = round(where * (trips - 2))
+    issued_trips(head, tail, plan, F2, I2, buf2, stop=k)
+    buf2.drain_ids = torch.zeros((plan.n,), dtype=torch.int32, device=device)
+    buf2.drain_len = torch.zeros((1,), dtype=torch.int32, device=device)
+    lanes = int(trip_kernel._to_trace(plan, I2).sum())
+    drain(plan, F2, I2, buf2, plan.trips_bound - k)
+    return dict(want=trip_outputs(plan, F, I), got=trip_outputs(plan, F2, I2), F=(F, F2),
+                I=(I, I2), lanes=lanes, drain_len=int(buf2.drain_len), left=int(buf2.count), k=k,
+                trips=trips, done=bool((I2[trip_kernel.I_KEYS.index("done")] != 0).all()))
+
+
+def assert_drained(r, chained):
+    """A drain's result equal to the issued trips': colour, normal, depth
+    and segments bit for bit, the whole state but the bounce counters
+    (which stop at a drained lane's last trip), every lane handed over
+    and none left."""
+    for key in KEYS:
+        assert torch.equal(r["got"][key], r["want"][key]), key
+    assert r["got"]["segs"] == r["want"]["segs"] > DRAIN_W * DRAIN_H
+    bounce = trip_kernel.I_KEYS.index("bounce")
+    keep = [j for j in range(len(trip_kernel.I_KEYS)) if j != bounce]
+    assert torch.equal(r["F"][0], r["F"][1])
+    assert torch.equal(r["I"][0][keep], r["I"][1][keep])
+    assert r["left"] == 0 and r["drain_len"] == r["lanes"] > 0 and r["trips"] - r["k"] >= 2
+    assert r["done"] or not chained
+
+
+def twin_checked(drain, twin: dict):
+    """``drain`` that first runs ``trip_drain_plain`` on copies of its
+    inputs and keeps the twin's state and list length in ``twin``."""
+    def checked(plan, F, I, buf, trips):
+        start = (F.clone(), I.clone(), trip_kernel.trip_buffers(plan))
+        start[2].drain_ids, start[2].drain_len = buf.drain_ids.clone(), buf.drain_len.clone()
+        trip_kernel.trip_drain_plain(plan, *start, trips)
+        twin.update(F=start[0], I=start[1], len=int(start[2].drain_len))
+        return drain(plan, F, I, buf, trips)
+
+    return checked
+
+
+@pytest.mark.parametrize("case", DRAIN_CASES)
+def test_drain_twin_equals_trip_loop(case):
+    """trip_drain_plain after k twin trips equals the twin trip loop run
+    to the end."""
+    r = drain_against_issued(trip_kernel.trip_head_plain, trip_kernel.trip_tail_plain,
+                             trip_kernel.trip_drain_plain, case)
+    assert_drained(r, DRAIN_CASES[case][0]["chained"])
+
+
+@pytest.fixture
+def drain_calls(monkeypatch):
+    """Every plan's list holds 100 lanes (the CPU has none), and
+    trip_drain's calls are recorded: (the handover trip, its lanes)."""
+    calls = []
+    drain = trip_kernel.trip_drain
+
+    def recording(plan, F, I, buf, trips):
+        calls.append((plan.trips_bound - trips, int(trip_kernel._to_trace(plan, I).sum())))
+        return drain(plan, F, I, buf, trips)
+
+    monkeypatch.setattr(trip_kernel, "drain_wave", lambda plan: 100)
+    monkeypatch.setattr(trip_kernel, "trip_drain", recording)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["chained", "per_sample"])
+def test_handover_only_without_mesh_or_emitters(spheres, drain_calls, mode):
+    """With a list of 100 lanes, the trip route of the nine spheres hands
+    its last lanes to trip_drain once at most 100 are left (once a sample
+    per sample), and renders what the body route renders; the spheres
+    beside a mesh and a lit scene take no drain."""
+    scene, cam = nine_spheres()
+    kw = dict(width=DRAIN_W, height=DRAIN_H, spp=3, max_bounces=12, start_iteration=5,
+              **MODES[mode])
+    got = render_image(scene, cam, **kw)
+    assert len(drain_calls) == (1 if mode == "chained" else 3)
+    assert all(trip > 0 and 0 < lanes <= 100 for trip, lanes in drain_calls), drain_calls
+    _assert_equal(got, render_image(scene, cam, intersect_fn=BODY, **kw))
+    del drain_calls[:]
+    for other, ocam in (spheres, (_nee_scene(), make_camera())):
+        plan = integrator._trip_plan(other, ocam, 8, 8, spp=1, max_bounces=2, rr_start=None,
+                                     iteration=0, chained=True)
+        assert plan.mesh or plan.nee
+        assert trip_kernel.trip_buffers(plan, drain=True).drain_cap == 0
+        render_image(other, ocam, 8, 8, spp=2, max_bounces=4, **MODES[mode])
+    assert not drain_calls
+
+
 # --- the kernels against their twins (card only) --------------------------------
 
 @pytest.fixture(scope="module")
@@ -584,13 +739,22 @@ def test_trip_head_equals_twin_on_states(cuda_device, name, state):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["handover", "issued"])
 @pytest.mark.parametrize("mode", MODES)
-def test_trip_route_equals_body_route_nine_spheres_on_card(cuda_device, mode):
+def test_trip_route_equals_body_route_nine_spheres_on_card(cuda_device, monkeypatch, mode, route):
+    """The nine spheres' trip route on the card equals the body route:
+    handed to trip_drain at trip 0 (960 lanes fit in one resident wave of
+    it), and issued trip by trip to the end (no list)."""
     scene, cam = nine_spheres(device=cuda_device)
     kw = dict(width=40, height=24, spp=2, max_bounces=5, rr_start=2, **MODES[mode])
-    before = trace.launch_counts()["trip_head"]
+    kernel = "trip_drain" if route == "handover" else "trip_head"
+    if route == "issued":
+        monkeypatch.setattr(trip_kernel, "drain_wave", lambda plan: 0)
+    before = trace.launch_counts()
     trip = render_image(scene, cam, **kw)
-    assert trace.launch_counts()["trip_head"] > before
+    after = trace.launch_counts()
+    assert after[kernel] > before[kernel]
+    assert (after["trip_head"] == before["trip_head"]) == (route == "handover")
     _assert_equal(trip, render_image(scene, cam, intersect_fn=BODY, **kw))
 
 
@@ -620,3 +784,54 @@ def test_trip_wrappers_check_their_inputs(cuda_device):
         trip_kernel.trip_head(plan, F, I.long(), buf)
     with pytest.raises(ValueError, match="sweep"):
         trip_kernel.trip_tail(plan, F, I, buf, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DRAIN_CASES)
+def test_trip_drain_equals_twin_on_card(cuda_device, case):
+    """trip_drain after k trips on the card against the trip loop run to
+    the end (``assert_drained``) and against ``trip_drain_plain`` from the
+    same start: the whole state and the list's length equal."""
+    twin = {}
+    r = drain_against_issued(trip_kernel.trip_head, trip_kernel.trip_tail,
+                             twin_checked(trip_kernel.trip_drain, twin), case, cuda_device)
+    torch.cuda.synchronize()
+    assert_drained(r, DRAIN_CASES[case][0]["chained"])
+    assert torch.equal(r["F"][1], twin["F"]) and torch.equal(r["I"][1], twin["I"])
+    assert twin["len"] == r["drain_len"]
+
+
+# three_balls renders: 512^2 (262,144 lanes, more than one wave) and an
+# image that fits in one wave from the start
+THREE_BALLS = {"512^2, 64 spp": (512, 512, 64), "128 x 96, 4 spp": (128, 96, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", THREE_BALLS)
+def test_handover_equals_issued_trips_on_card(cuda_device, monkeypatch, size):
+    """three_balls.json (four spheres, 50 bounces, no roulette) rendered
+    with the handover and with the issued trips run to the end (no list):
+    colour, normal, depth and segments bit-equal; one drain, after which
+    the count reads 0; the image that fits in one wave handed over at
+    trip 0."""
+    from tpupt_torch.scene.assets_gen import locate_asset_path
+
+    desc = scene_from_json(os.path.join(locate_asset_path(), "scenes", "three_balls.json"))
+    scene = desc.build(device=cuda_device)
+    w, h, spp = THREE_BALLS[size]
+    kw = dict(width=w, height=h, spp=spp, max_bounces=50, start_iteration=2**20 + 7)
+    drains, drain = [], trip_kernel.trip_drain
+
+    def recording(plan, F, I, buf, trips):
+        out = drain(plan, F, I, buf, trips)
+        drains.append((plan.trips_bound - trips, int(buf.drain_len), int(buf.count)))
+        return out
+
+    monkeypatch.setattr(trip_kernel, "trip_drain", recording)
+    got = render_image(scene, desc.camera, **kw)
+    monkeypatch.setattr(trip_kernel, "drain_wave", lambda plan: 0)
+    want = render_image(scene, desc.camera, **kw)
+    assert len(drains) == 1 and drains[0][2] == 0 and drains[0][1] > 0, drains
+    assert (drains[0][0] == 0) == (w * h == 128 * 96), drains
+    _assert_equal(got, want)
+

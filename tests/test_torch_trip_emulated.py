@@ -16,8 +16,11 @@ closing stores and the CDF search are checked on every run of the suite,
 on the emitter scenes and on two emitter-free ones (nine spheres with an
 exact-t tie and a radius-1000 ground; spheres beside a mesh), with
 trip_head held to its twin on dense, sparse and all-dead states at a lane
-count that fills no chunk; the warps' queues of live lanes only on the card
-(``tests/test_torch_trip_nee.py``, ``chip_smoke.py``).  Both sides use correctly rounded float32 sqrt, rsqrt,
+count that fills no chunk; and trip_drain after k issued trips against
+the trip loop run to the end and against its twin.  The warps' queues of
+live lanes and the drain list's ranks only on the card
+(``tests/test_torch_trip_nee.py``, ``tests/test_torch_trip.py``,
+``chip_smoke.py``).  Both sides use correctly rounded float32 sqrt, rsqrt,
 sin and cos (torch's CPU functions and the C library's differ in the last
 bit).
 
@@ -138,6 +141,27 @@ def test_emulated_emitter_free_route_equals_body_route(emulated, monkeypatch, na
     assert int(got[1]) == int(want[1]) > trip.W_ODD * trip.H_ODD
     for key in ("color", "normal", "depth"):
         assert torch.equal(getattr(got[0], key), getattr(want[0], key)), key
+
+
+@pytest.mark.parametrize("emulated", ["staged", "global"], indirect=True)
+@pytest.mark.parametrize("case", list(trip.DRAIN_CASES))
+def test_emulated_drain_equals_issued_trips(emulated, case):
+    """The emulated trip_drain after k emulated trips (trip_head,
+    trip_tail) on the nine spheres (an exact-t tie, a radius-1000 ground;
+    24 x 16, a long tail), from trip 0, a middle trip or the last trip but
+    one, chained, per sample and with roulette, against the emulated trip
+    loop run to the end: colour, normal, depth and segments bit-equal,
+    every lane done and none left in the count; and the same state as
+    ``trip_drain_plain``'s from the same start, bounce counters and the
+    list's length included (``trip_drain``'s table staged and read from
+    global memory, the ``emulated`` fixture's two builds)."""
+    wrappers, _ = emulated
+    twin = {}
+    r = trip.drain_against_issued(wrappers["trip_head"], wrappers["trip_tail"],
+                                  trip.twin_checked(wrappers["trip_drain"], twin), case)
+    trip.assert_drained(r, trip.DRAIN_CASES[case][0]["chained"])
+    assert torch.equal(r["F"][1], twin["F"]) and torch.equal(r["I"][1], twin["I"])
+    assert twin["len"] == r["drain_len"]
 
 
 def _cdf_cases():

@@ -51,6 +51,12 @@
 //   trip_tail   its NEE mode: the lit terms' contributions added in the
 //               body's order, then roulette, the fold and the count.
 //
+// A render of a scene without meshes or emitters stops issuing trips once
+// the lanes still to trace fit in one resident wave of
+//
+//   trip_drain  the lanes still to trace listed, then each run on one
+//               thread, trip after trip, to its end (its section below).
+//
 // The lane state is SoA in device memory (F: 25 f32 rows, I: 7 i32 rows,
 // row-major (rows, N)), updated in place: a lane reads and writes only its
 // own entries, so no lane ever reads what another writes.
@@ -222,15 +228,50 @@ struct HeadArgs {
   int n_stage;  // floats of tab staged in shared memory: the sphere rows, or none
 };
 
+// intersect._sphere_pass of one ray over the sphere rows of tab, in the
+// scene's order (a later hit at an equal t overwrites an earlier one: the
+// window is t1 <= t_best): its t (BIG where no sphere was hit), world
+// point and normal; returns object * 2 + front of the winning sphere (-1:
+// none).  The pass is lazy: a sphere's world t is measured only where its
+// quadratic hits the window, and the winner's normal once, after the loop,
+// from the values its candidate computed (intersect._sphere_candidate's
+// operations in its order, so the same bits as computing every candidate
+// whole and keeping the winner's)
+__device__ __forceinline__ int sphere_pass(const float* tab, int n_sph, V3 ro, V3 rd, float t_min,
+                                           float& t_best, V3& point, V3& normal) {
+  t_best = kBig;
+  int win = -1;  // the winning sphere's row
+  V3 od_w = v3(0.0f, 0.0f, 0.0f), pobj_w = od_w;
+  point = od_w;
+  for (int o = 0; o < n_sph; ++o) {
+    const float* s = tab + o * kSphereRow;
+    float t_obj;
+    V3 oo, od;
+    if (!sphere_roots(s, ro, rd, t_min, t_best, &t_obj, &oo, &od)) continue;
+    const V3 point_obj = oo + od * t_obj;
+    const V3 point_w = xform_point(s + 12, point_obj);
+    const V3 rel = point_w - ro;
+    t_best = sqrtf(clamp_min(dot(rel, rel), 1e-30f));
+    win = o;
+    od_w = od;
+    pobj_w = point_obj;
+    point = point_w;
+  }
+  normal = v3(0.0f, 0.0f, 0.0f);
+  int code = -1;
+  if (win >= 0) {
+    const float* s = tab + win * kSphereRow;
+    const V3 outward = (pobj_w - v3(s[24], s[25], s[26])) * (1.0f / s[27]);
+    const bool front = dot(od_w, outward) < 0.0f;
+    normal = xform_normal(s, sel(front, outward, -outward));
+    code = (int)s[28] * 2 + (front ? 1 : 0);
+  }
+  return code;
+}
+
 // Live lanes idx[k] (-1: none): every lane's ray read first, then for each
-// intersect._sphere_pass over the sphere objects in the scene's order (a
-// later hit at an equal t overwrites an earlier one: the window is t1 <=
-// t_best), its record, and the sweep's rows seeded with its t.  The pass is
-// lazy: a sphere's world t is measured only where its quadratic hits the
-// window, and the winner's normal once, after the loop, from the values its
-// candidate computed (intersect._sphere_candidate's operations in its
-// order, so the same bits as computing every candidate whole and keeping
-// the winner's)
+// its sphere pass (sphere_pass), its record, and the sweep's rows seeded
+// with its t
 template <bool kStaged>
 __device__ __forceinline__ void head_lanes(const HeadArgs& a, const int (&idx)[kHeadPer]) {
   const float* tab = kStaged ? sm_tab() : a.tab;
@@ -249,32 +290,9 @@ __device__ __forceinline__ void head_lanes(const HeadArgs& a, const int (&idx)[k
   for (int k = 0; k < kHeadPer; ++k) {
     const int i = idx[k];
     if (i < 0) continue;
-    float t_best = kBig;
-    int win = -1;  // the winning sphere's row
-    V3 od_w = v3(0.0f, 0.0f, 0.0f), pobj_w = od_w, point = od_w;
-    for (int o = 0; o < a.n_sph; ++o) {
-      const float* s = tab + o * kSphereRow;
-      float t_obj;
-      V3 oo, od;
-      if (!sphere_roots(s, ro[k], rd[k], t_min[k], t_best, &t_obj, &oo, &od)) continue;
-      const V3 point_obj = oo + od * t_obj;
-      const V3 point_w = xform_point(s + 12, point_obj);
-      const V3 rel = point_w - ro[k];
-      t_best = sqrtf(clamp_min(dot(rel, rel), 1e-30f));
-      win = o;
-      od_w = od;
-      pobj_w = point_obj;
-      point = point_w;
-    }
-    V3 normal = v3(0.0f, 0.0f, 0.0f);
-    int code = -1;  // object * 2 + front of the winning sphere, -1: none
-    if (win >= 0) {
-      const float* s = tab + win * kSphereRow;
-      const V3 outward = (pobj_w - v3(s[24], s[25], s[26])) * (1.0f / s[27]);
-      const bool front = dot(od_w, outward) < 0.0f;
-      normal = xform_normal(s, sel(front, outward, -outward));
-      code = (int)s[28] * 2 + (front ? 1 : 0);
-    }
+    float t_best;
+    V3 point, normal;
+    const int code = sphere_pass(tab, a.n_sph, ro[k], rd[k], t_min[k], t_best, point, normal);
     a.hrec[0 * (size_t)n + i] = t_best;
     a.hrec[1 * (size_t)n + i] = point.x;
     a.hrec[2 * (size_t)n + i] = point.y;
@@ -395,26 +413,36 @@ struct RecordArgs {
 };
 
 
-// intersect.hit_record: the sphere pass's record, replaced by the sweep's
-// winner where a triangle won
-__device__ __forceinline__ HitRec hit_record(const RecordArgs& r, const float* tab, int obj_off,
-                                             int n, int i, V3 ro, V3 rd) {
+// The hit record of a sphere pass's record: a hit where code >= 0 (object
+// * 2 + front), t then, else BIG
+__device__ __forceinline__ HitRec sphere_hit(const float* tab, int obj_off, int code, float t,
+                                             V3 point, V3 normal) {
   HitRec h;
-  const int code = r.hint[i];
   h.mask = code >= 0;
   h.kind = h.mask ? kPrimSphere : kPrimNone;
   h.front = h.mask && (code & 1);
   h.obj = h.mask ? code >> 1 : -1;
   h.mat = h.mask ? (int)tab[obj_off + h.obj] : 0;
-  float t_best = r.hrec[0 * (size_t)n + i];
-  h.point = v3(r.hrec[1 * (size_t)n + i], r.hrec[2 * (size_t)n + i], r.hrec[3 * (size_t)n + i]);
-  h.normal = v3(r.hrec[4 * (size_t)n + i], r.hrec[5 * (size_t)n + i], r.hrec[6 * (size_t)n + i]);
+  h.t = h.mask ? t : kBig;
+  h.point = point;
+  h.normal = normal;
+  return h;
+}
+
+// intersect.hit_record: the sphere pass's record, replaced by the sweep's
+// winner where a triangle won
+__device__ __forceinline__ HitRec hit_record(const RecordArgs& r, const float* tab, int obj_off,
+                                             int n, int i, V3 ro, V3 rd) {
+  HitRec h = sphere_hit(
+      tab, obj_off, r.hint[i], r.hrec[0 * (size_t)n + i],
+      v3(r.hrec[1 * (size_t)n + i], r.hrec[2 * (size_t)n + i], r.hrec[3 * (size_t)n + i]),
+      v3(r.hrec[4 * (size_t)n + i], r.hrec[5 * (size_t)n + i], r.hrec[6 * (size_t)n + i]));
   if (r.s_slot != nullptr && r.s_slot[i] >= 0) {
     float t_mesh = r.s_t[i];
     int obj_w = max((int)r.s_obj[i], 0);
     V3 outward = normalize(v3(r.s_nx[i], r.s_ny[i], r.s_nz[i]));
     bool tri_front = dot(rd, outward) < 0.0f;
-    t_best = t_mesh;
+    h.t = t_mesh;
     h.mask = true;
     h.kind = kPrimTriangle;
     h.obj = obj_w;
@@ -423,7 +451,6 @@ __device__ __forceinline__ HitRec hit_record(const RecordArgs& r, const float* t
     h.front = tri_front;
     h.mat = (int)tab[obj_off + obj_w];
   }
-  h.t = h.mask ? t_best : kBig;
   return h;
 }
 
@@ -891,6 +918,130 @@ __device__ __forceinline__ V3 nee_sum(const TailArgs& a, int i) {
   return total;
 }
 
+// A lane's path between trips: the F rows a trip reads and writes
+struct Path {
+  V3 ro, rd, rad, col, nrm;
+  float t_min, depth;
+};
+
+// lane i's entry of F's row `row` (the four functions below take F, n, i)
+#define FR(row) F[(size_t)(row) * n + i]
+
+__device__ __forceinline__ Path load_path(const float* F, int n, int i) {
+  Path p;
+  p.ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
+  p.rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
+  p.t_min = FR(F_TMIN);
+  p.rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
+  p.col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
+  p.nrm = v3(FR(F_NX), FR(F_NY), FR(F_NZ));
+  p.depth = FR(F_DEPTH);
+  return p;
+}
+
+__device__ __forceinline__ void store_path(float* F, int n, int i, const Path& p) {
+  FR(F_ROX) = p.ro.x;
+  FR(F_ROY) = p.ro.y;
+  FR(F_ROZ) = p.ro.z;
+  FR(F_RDX) = p.rd.x;
+  FR(F_RDY) = p.rd.y;
+  FR(F_RDZ) = p.rd.z;
+  FR(F_TMIN) = p.t_min;
+  FR(F_RADX) = p.rad.x;
+  FR(F_RADY) = p.rad.y;
+  FR(F_RADZ) = p.rad.z;
+  FR(F_COLX) = p.col.x;
+  FR(F_COLY) = p.col.y;
+  FR(F_COLZ) = p.col.z;
+  FR(F_NX) = p.nrm.x;
+  FR(F_NY) = p.nrm.y;
+  FR(F_NZ) = p.nrm.z;
+  FR(F_DEPTH) = p.depth;
+}
+
+// The chained loop's running averages of a lane's colour, normal and depth
+struct Acc {
+  V3 col, nrm;
+  float depth;
+};
+
+__device__ __forceinline__ Acc load_acc(const float* F, int n, int i) {
+  return Acc{v3(FR(F_ACX), FR(F_ACY), FR(F_ACZ)), v3(FR(F_ANX), FR(F_ANY), FR(F_ANZ)),
+             FR(F_ADEPTH)};
+}
+
+__device__ __forceinline__ void store_acc(float* F, int n, int i, const Acc& acc) {
+  FR(F_ACX) = acc.col.x;
+  FR(F_ACY) = acc.col.y;
+  FR(F_ACZ) = acc.col.z;
+  FR(F_ANX) = acc.nrm.x;
+  FR(F_ANY) = acc.nrm.y;
+  FR(F_ANZ) = acc.nrm.z;
+  FR(F_ADEPTH) = acc.depth;
+}
+#undef FR
+
+// The no-emitter body of a live lane on its hit h (integrator._bounce_body
+// without NEE, up to roulette): background on a miss, the first bounce's
+// normal and depth, shading and emission.  Returns whether the path goes on
+__device__ __forceinline__ bool body(const float* tab, int mat_off, int bg_off, const HitRec& h,
+                                     uint32_t seed, int bounce, Path& p) {
+  if (!h.mask) p.rad = p.rad + p.col * background(tab + bg_off, p.rd);
+  if (bounce == 0 && h.mask) {
+    p.nrm = h.normal;
+    p.depth = h.t;
+  }
+  if (!h.mask) return false;
+  const Scatter sc = shade(tab, mat_off, h, p.rd, p.t_min, seed, bounce);
+  // the emission term without NEE (integrator._weighted_emission)
+  p.rad = p.rad + p.col * sc.emitted;
+  p.ro = sc.ro;
+  p.rd = sc.rd;
+  p.t_min = sc.t_min;
+  p.col = p.col * sc.mult;
+  return !sc.is_emis;
+}
+
+// materials.russian_roulette from bounce rr_start: whether a path that
+// goes on survives (its throughput rescaled)
+__device__ __forceinline__ bool roulette(uint32_t seed, int bounce, int rr_start, bool alive2,
+                                         V3& col) {
+  if (alive2 && bounce >= rr_start) {
+    float u = uniform(seed, bounce_counter(bounce, 3));
+    float p_s = clamp2(maximum(maximum(col.x, col.y), col.z), 0.05f, 0.95f);
+    bool survive = u < p_s;
+    float inv_p = 1.0f / p_s;
+    if (survive) col = col * inv_p;
+    alive2 = survive;
+  }
+  return alive2;
+}
+
+// integrator._chain_step's (n-1)/n fold of a finished sample (global
+// sample index git: colour fin, normal nrm, depth) into acc
+__device__ __forceinline__ void fold(int git, V3 fin, V3 nrm, float depth, Acc& acc) {
+  float nf = (float)(git + 1);
+  bool first = git == 0;
+  float w = nf - 1.0f;
+  acc.col = first ? fin : v3((acc.col.x * w + fin.x) / nf, (acc.col.y * w + fin.y) / nf,
+                             (acc.col.z * w + fin.z) / nf);
+  acc.nrm = first ? nrm : v3((acc.nrm.x * w + nrm.x) / nf, (acc.nrm.y * w + nrm.y) / nf,
+                             (acc.nrm.z * w + nrm.z) / nf);
+  acc.depth = first ? depth : (acc.depth * w + depth) / nf;
+}
+
+// The lane's next sample (integrator._fresh_state): a fresh primary ray
+// for pixel pix at sample `iteration`; returns its seed
+__device__ __forceinline__ uint32_t restart(const TailArgs& a, int pix, int iteration, Path& p) {
+  const uint32_t seed = fresh_ray(a, pix, iteration, &p.ro, &p.rd);
+  p.t_min = 1e-4f;  // camera.T_MIN_PRIMARY
+  p.rad = v3(0.0f, 0.0f, 0.0f);
+  p.col = v3(1.0f, 1.0f, 1.0f);
+  p.nrm = -p.rd;
+  p.depth = 1e6f;
+  return seed;
+}
+
 template <bool kNee>
 __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -899,7 +1050,6 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
   if (i < n) {
     float* F = a.F;
     int* I = a.I;
-#define FR(row) F[(size_t)(row) * n + i]
 #define IR(row) I[(size_t)(row) * n + i]
     const bool alive = IR(I_ALIVE) != 0;
     bool done = a.chained && IR(I_DONE) != 0;
@@ -907,50 +1057,20 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
     // a lane that is done and dead: the body and the fold change nothing
     // but its bounce counter
     const bool touched = alive || (a.chained && !done);
-    V3 ro, rd, rad, col, nrm;
-    float t_min = 0.0f, depth = 0.0f;
+    Path p;
+    if (touched) p = load_path(F, n, i);
     bool alive2 = false;
-    if (touched) {
-      ro = v3(FR(F_ROX), FR(F_ROY), FR(F_ROZ));
-      rd = v3(FR(F_RDX), FR(F_RDY), FR(F_RDZ));
-      t_min = FR(F_TMIN);
-      rad = v3(FR(F_RADX), FR(F_RADY), FR(F_RADZ));
-      col = v3(FR(F_COLX), FR(F_COLY), FR(F_COLZ));
-      nrm = v3(FR(F_NX), FR(F_NY), FR(F_NZ));
-      depth = FR(F_DEPTH);
-    }
     if (alive) {
       const uint32_t seed = (uint32_t)IR(I_SEED);
       if (kNee) {
         // trip_nee left the body's state; NEE's sum joins the radiance
-        rad = rad + nee_sum(a, i);
+        p.rad = p.rad + nee_sum(a, i);
         alive2 = a.alive_next[i] != 0;
       } else {
-        const HitRec h = hit_record(a.rec, a.tab, a.obj_off, n, i, ro, rd);
-        if (!h.mask) rad = rad + col * background(a.tab + a.bg_off, rd);
-        if (bounce == 0 && h.mask) {
-          nrm = h.normal;
-          depth = h.t;
-        }
-        if (h.mask) {
-          const Scatter sc = shade(a.tab, a.mat_off, h, rd, t_min, seed, bounce);
-          // the emission term without NEE (integrator._weighted_emission)
-          rad = rad + col * sc.emitted;
-          ro = sc.ro;
-          rd = sc.rd;
-          t_min = sc.t_min;
-          col = col * sc.mult;
-          alive2 = !sc.is_emis;
-        }
+        const HitRec h = hit_record(a.rec, a.tab, a.obj_off, n, i, p.ro, p.rd);
+        alive2 = body(a.tab, a.mat_off, a.bg_off, h, seed, bounce, p);
       }
-      if (alive2 && bounce >= a.rr_start) {  // materials.russian_roulette
-        float u = uniform(seed, bounce_counter(bounce, 3));
-        float p_s = clamp2(maximum(maximum(col.x, col.y), col.z), 0.05f, 0.95f);
-        bool survive = u < p_s;
-        float inv_p = 1.0f / p_s;
-        if (survive) col = col * inv_p;
-        alive2 = survive;
-      }
+      alive2 = roulette(seed, bounce, a.rr_start, alive2, p.col);
     }
 
     const int b2 = bounce + 1;
@@ -958,66 +1078,26 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
       bool capped = alive2 && b2 >= a.max_bounces;
       bool ended = !done && (!alive2 || capped);
       bool need = false;
-      int k = 0;
       if (ended) {  // fold the finished sample into the lane's averages
-        k = IR(I_K);
-        V3 fin = capped ? rad + col : rad;
-        int git = a.it0 + k;
-        float nf = (float)(git + 1);
-        bool first = git == 0;
-        V3 ac = v3(FR(F_ACX), FR(F_ACY), FR(F_ACZ));
-        V3 an = v3(FR(F_ANX), FR(F_ANY), FR(F_ANZ));
-        float ad = FR(F_ADEPTH);
-        float w = nf - 1.0f;
-        ac = first ? fin : v3((ac.x * w + fin.x) / nf, (ac.y * w + fin.y) / nf,
-                              (ac.z * w + fin.z) / nf);
-        an = first ? nrm : v3((an.x * w + nrm.x) / nf, (an.y * w + nrm.y) / nf,
-                              (an.z * w + nrm.z) / nf);
-        ad = first ? depth : (ad * w + depth) / nf;
-        FR(F_ACX) = ac.x;
-        FR(F_ACY) = ac.y;
-        FR(F_ACZ) = ac.z;
-        FR(F_ANX) = an.x;
-        FR(F_ANY) = an.y;
-        FR(F_ANZ) = an.z;
-        FR(F_ADEPTH) = ad;
+        int k = IR(I_K);
+        Acc acc = load_acc(F, n, i);
+        fold(a.it0 + k, capped ? p.rad + p.col : p.rad, p.nrm, p.depth, acc);
+        store_acc(F, n, i, acc);
         k += 1;
         done = k >= a.spp;
         need = !done;
         IR(I_K) = k;
         IR(I_DONE) = done ? 1 : 0;
-      }
-      if (need) {  // the lane's next sample: a fresh primary ray
-        uint32_t s2 = fresh_ray(a, a.pix0 + i, a.it0 + k, &ro, &rd);
-        t_min = 1e-4f;  // camera.T_MIN_PRIMARY
-        rad = v3(0.0f, 0.0f, 0.0f);
-        col = v3(1.0f, 1.0f, 1.0f);
-        nrm = -rd;
-        depth = 1e6f;
-        IR(I_SEED) = (int)s2;
-        if (kNee) {  // _fresh_state: no scatter yet, so the next hit takes full weight
-          IR(I_SPEC) = 1;
-          FR(F_PDFW) = 0.0f;
+        if (need) {  // the lane's next sample: a fresh primary ray
+          IR(I_SEED) = (int)restart(a, a.pix0 + i, a.it0 + k, p);
+          if (kNee) {  // _fresh_state: no scatter yet, so the next hit takes full weight
+            IR(I_SPEC) = 1;
+            F[(size_t)F_PDFW * n + i] = 0.0f;
+          }
         }
       }
       if (touched) {
-        FR(F_ROX) = ro.x;
-        FR(F_ROY) = ro.y;
-        FR(F_ROZ) = ro.z;
-        FR(F_RDX) = rd.x;
-        FR(F_RDY) = rd.y;
-        FR(F_RDZ) = rd.z;
-        FR(F_TMIN) = t_min;
-        FR(F_RADX) = rad.x;
-        FR(F_RADY) = rad.y;
-        FR(F_RADZ) = rad.z;
-        FR(F_COLX) = col.x;
-        FR(F_COLY) = col.y;
-        FR(F_COLZ) = col.z;
-        FR(F_NX) = nrm.x;
-        FR(F_NY) = nrm.y;
-        FR(F_NZ) = nrm.z;
-        FR(F_DEPTH) = depth;
+        store_path(F, n, i, p);
         IR(I_ALIVE) = need || (alive2 && !ended);
         IR(I_SEGS) = IR(I_SEGS) + (alive ? 1 : 0);
       }
@@ -1025,35 +1105,164 @@ __global__ void __launch_bounds__(kThreads) trip_tail_kernel(const TailArgs a) {
       left = !done;
     } else {
       if (alive) {
-        FR(F_ROX) = ro.x;
-        FR(F_ROY) = ro.y;
-        FR(F_ROZ) = ro.z;
-        FR(F_RDX) = rd.x;
-        FR(F_RDY) = rd.y;
-        FR(F_RDZ) = rd.z;
-        FR(F_TMIN) = t_min;
-        FR(F_RADX) = rad.x;
-        FR(F_RADY) = rad.y;
-        FR(F_RADZ) = rad.z;
-        FR(F_COLX) = col.x;
-        FR(F_COLY) = col.y;
-        FR(F_COLZ) = col.z;
-        FR(F_NX) = nrm.x;
-        FR(F_NY) = nrm.y;
-        FR(F_NZ) = nrm.z;
-        FR(F_DEPTH) = depth;
+        store_path(F, n, i, p);
         IR(I_ALIVE) = alive2;
         IR(I_SEGS) = IR(I_SEGS) + 1;
       }
       IR(I_BOUNCE) = b2;
       left = alive2;
     }
-#undef FR
 #undef IR
   }
   // every thread of the warp reaches the vote, out-of-range ones with 0
   const unsigned votes = __ballot_sync(0xffffffffu, left);
   if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(a.count, __popc(votes));
+}
+
+// --- trip_drain --------------------------------------------------------------
+
+// The tail of a render of a scene without meshes or emitters in one
+// launch, once its lanes still to trace fit in one resident wave of
+// trip_drain_kernel.  The lanes are listed (trip_drain_compact_kernel: a
+// warp's live lanes at their ranks behind one atomic), then each listed
+// lane runs on one thread, its state in registers, trip after trip until it
+// is done or the loop's trips are spent, and writes its state back once.
+// A lane's trip is the issued trip's: trip_head's sphere pass, then
+// trip_tail's hit record, body, roulette and, chained, fold and restart,
+// the same functions in the same order, so the same bits.  A done lane's
+// bounce counter (which nothing reads) stops at its last trip.  The scene
+// table is staged in shared memory once a CTA where it fits.  What it
+// replaces: the late trips of a large render (~7,900 of ~8,500 at
+// 3840x2160, 200 spp), each two launches over every lane and a 4-byte read
+// by the host for a few thousand live lanes.
+
+struct DrainArgs {
+  TailArgs t;  // the lane state, the scene table, the camera, the loop's settings
+  int n_sph;
+  int trips;  // the loop's trips left: no lane runs more
+  int* ids;   // the listed lanes, at most cap
+  int cap;
+  int* len;     // the lanes the compaction found (those past cap are not listed)
+  int n_stage;  // floats of tab staged in shared memory: the whole table, or none
+};
+
+// Lane i onto the list where `live`: the warp's live lanes at their ranks
+// among them, behind one atomic
+__device__ __forceinline__ void drain_list(const DrainArgs& d, int i, bool live) {
+  const unsigned votes = __ballot_sync(kFull, live);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0 && votes != 0u) base = atomicAdd(d.len, __popc(votes));
+  base = __shfl_sync(kFull, base, 0);
+  const int at = base + __popc(votes & ((1u << lane) - 1u));
+  if (live && at < d.cap) d.ids[at] = i;
+}
+
+// The lanes still to trace: not done (chained), else alive
+__global__ void __launch_bounds__(kThreads) trip_drain_compact_kernel(const DrainArgs d) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int n = d.t.n;
+  bool live = false;
+  if (i < n) {
+    live = d.t.chained ? d.t.I[(size_t)I_DONE * n + i] == 0 : d.t.I[(size_t)I_ALIVE * n + i] != 0;
+  }
+  drain_list(d, i, live);
+}
+
+// Lane i's remaining trips; its state written back once.  Returns whether
+// it is left to trace (chained: not done when the trips are spent, which
+// the bound rules out; per sample the trips end at the bounce cap)
+template <bool kStaged>
+__device__ __forceinline__ bool drain_lane(const DrainArgs& d, int i) {
+  const TailArgs& a = d.t;
+  const float* tab = kStaged ? sm_tab() : a.tab;
+  float* F = a.F;
+  int* I = a.I;
+  const int n = a.n;
+#define IR(row) I[(size_t)(row) * n + i]
+  Path p = load_path(F, n, i);
+  bool alive = IR(I_ALIVE) != 0;
+  bool done = a.chained && IR(I_DONE) != 0;
+  uint32_t seed = (uint32_t)IR(I_SEED);
+  int bounce = IR(I_BOUNCE), k = IR(I_K), segs = IR(I_SEGS);
+  Acc acc;
+  if (a.chained) acc = load_acc(F, n, i);
+  for (int trip = 0; trip < d.trips && (a.chained ? !done : alive); ++trip) {
+    bool alive2 = false;
+    if (alive) {
+      float t;
+      V3 point, normal;
+      const int code = sphere_pass(tab, d.n_sph, p.ro, p.rd, p.t_min, t, point, normal);
+      const HitRec h = sphere_hit(tab, a.obj_off, code, t, point, normal);
+      alive2 = body(tab, a.mat_off, a.bg_off, h, seed, bounce, p);
+      alive2 = roulette(seed, bounce, a.rr_start, alive2, p.col);
+      segs += 1;
+    }
+    const int b2 = bounce + 1;
+    if (a.chained) {
+      const bool capped = alive2 && b2 >= a.max_bounces;
+      const bool ended = !alive2 || capped;  // not done inside the loop
+      bool need = false;
+      if (ended) {
+        fold(a.it0 + k, capped ? p.rad + p.col : p.rad, p.nrm, p.depth, acc);
+        k += 1;
+        done = k >= a.spp;
+        need = !done;
+        if (need) seed = restart(a, a.pix0 + i, a.it0 + k, p);
+      }
+      alive = need || (alive2 && !ended);
+      bounce = need ? 0 : b2;
+    } else {
+      alive = alive2;
+      bounce = b2;
+    }
+  }
+  store_path(F, n, i, p);
+  IR(I_ALIVE) = alive ? 1 : 0;
+  IR(I_SEED) = (int)seed;
+  IR(I_BOUNCE) = bounce;
+  IR(I_SEGS) = segs;
+  if (a.chained) {
+    store_acc(F, n, i, acc);
+    IR(I_K) = k;
+    IR(I_DONE) = done ? 1 : 0;
+  }
+#undef IR
+  return a.chained && !done;
+}
+
+// A CTA of listed lanes, one a thread (a CTA past the list leaves at
+// once): the table staged, each lane drained, the lanes left added to
+// count with one atomic a warp, and by CTA 0 the lanes the list could not
+// hold, so that count reads 0 exactly when every lane was drained
+template <bool kStaged>
+__device__ __forceinline__ void drain_cta(const DrainArgs& d) {
+  const int listed = min(*d.len, d.cap);
+  if ((int)blockIdx.x * kThreads >= listed) return;
+  if (kStaged) {
+    stage_table(d.t.tab, d.n_stage);
+    __syncthreads();
+  }
+  const int slot = blockIdx.x * kThreads + threadIdx.x;
+  const bool left = slot < listed && drain_lane<kStaged>(d, d.ids[slot]);
+  const unsigned votes = __ballot_sync(kFull, left);
+  if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(d.t.count, __popc(votes));
+  if (slot == 0 && *d.len > d.cap) atomicAdd(d.t.count, *d.len - d.cap);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads) trip_drain_kernel(const DrainArgs d) {
+  drain_cta<kStaged>(d);
+}
+
+// Floats of a scene table of n_tab floats that trip_drain stages
+int drain_stage(int n_tab) { return n_tab <= kStageMax ? n_tab : 0; }
+
+// CTAs of trip_drain_kernel<kStaged> resident at once with smem bytes
+template <bool kStaged>
+cudaError_t drain_ctas(size_t smem, int* ctas) {
+  static Resident resident;
+  return resident_ctas(resident, trip_drain_kernel<kStaged>, kThreads, smem, ctas);
 }
 
 // One trip_head launch over `ctas` CTAs of kHeadLanes lanes (kStaged: with
@@ -1155,6 +1364,50 @@ int tpupt_trip_tail(float* F, int* I, int n, const float* hrec, const int* hint,
     } else {
       trip_tail_kernel<false><<<blocks, kThreads, 0, stream>>>(a);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The lanes one resident wave of trip_drain holds on the current device,
+// for a scene table of n_tab floats: its CTAs resident at once times their
+// threads.
+int tpupt_trip_drain_wave(int n_tab, int* lanes) {
+  const int n_stage = drain_stage(n_tab);
+  const size_t smem = grid_smem_bytes(n_stage);
+  int ctas = 0;
+  const cudaError_t err = n_stage > 0 ? drain_ctas<true>(smem, &ctas)
+                                      : drain_ctas<false>(smem, &ctas);
+  if (err != cudaSuccess) return (int)err;
+  *lanes = ctas * kThreads;
+  return (int)cudaSuccess;
+}
+
+// trip_drain over n lanes of a scene without meshes or emitters: lists
+// the lanes still to trace in ids (cap entries; *len the lanes found),
+// runs each to its end within `trips` trips, and zeroes *count, then adds
+// the lanes left to trace and those the list could not hold.
+int tpupt_trip_drain(float* F, int* I, int n, const float* tab, int n_tab, int n_sph, int mat_off,
+                     int obj_off, int bg_off, const float* cam, int pix0, int width, int height,
+                     int it0, int spp, int max_bounces, int rr_start, int chained, int trips,
+                     int* ids, int cap, int* len, int* count, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(len, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || cap <= 0) return (int)cudaGetLastError();
+  const int n_stage = drain_stage(n_tab);
+  const TailArgs t{F,       I,        n,       {},         tab,     mat_off, obj_off,
+                   bg_off,  cam,      pix0,    width,      height,  it0,     spp,
+                   max_bounces, rr_start, chained, 0,     0,       0,       nullptr,
+                   nullptr, nullptr,  nullptr, count};
+  const DrainArgs d{t, n_sph, trips, ids, cap, len, n_stage};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  trip_drain_compact_kernel<<<blocks, kThreads, 0, stream>>>(d);
+  const int ctas = (cap + kThreads - 1) / kThreads;
+  const size_t smem = grid_smem_bytes(n_stage);
+  if (n_stage > 0) {
+    trip_drain_kernel<true><<<ctas, kThreads, smem, stream>>>(d);
+  } else {
+    trip_drain_kernel<false><<<ctas, kThreads, smem, stream>>>(d);
   }
   return (int)cudaGetLastError();
 }

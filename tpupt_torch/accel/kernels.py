@@ -120,6 +120,11 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tpupt_trip_tail.restype = _I
     lib.tpupt_trip_tail.argtypes = ([_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P] + [_I] * 11
                                     + [_P] * 6)
+    lib.tpupt_trip_drain_wave.restype = _I
+    lib.tpupt_trip_drain_wave.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.tpupt_trip_drain.restype = _I
+    lib.tpupt_trip_drain.argtypes = ([_P, _P, _I, _P] + [_I] * 5 + [_P] + [_I] * 9
+                                     + [_P, _I, _P, _P, _P])
     lib.tpupt_diff_trip_fwd.restype = _I
     lib.tpupt_diff_trip_fwd.argtypes = [_P, _P, _I] + [_P] * 13 + [_I] * 6 + [_P] * 4
     lib.tpupt_diff_trip_bwd_smem_bytes.restype = ctypes.c_size_t

@@ -9,7 +9,10 @@ sample, so the loop runs for the maximum over lanes of the summed path
 lengths (at most spp * max_bounces trips) instead of spp times the deepest
 path.  RNG is counter-based on (pixel, sample, bounce, lane), so the result
 is that of the per-sample loop, with the same ray count.  The port runs
-this as one flat loop with a host check for live lanes on every trip.
+this as one flat loop with a host check for live lanes on every trip; on
+the card, a scene without meshes or emitters hands its lanes to one
+``trip_kernel.trip_drain`` launch once they fit in one resident wave of it
+(``_run_trips``).
 
 Three routes run the loops (``render_route``).  A forward render through
 the default hit pass (and, with emitters, the default shadow sweep) takes
@@ -661,9 +664,9 @@ def _trip_plan(scene, camera, width, height, *, spp, max_bounces, rr_start, iter
     def finish(out, seed, bounce, nee):
         return _bounce_finish(out, seed, bounce, rr_start, nee)
 
-    def fold(st, st2, seed, bounce, ch):
-        return _chain_step(scene, camera, width, height, pix, iteration, spp, max_bounces, st, st2,
-                           seed, bounce, ch)
+    def fold(st, st2, seed, bounce, ch, lane_pix):
+        return _chain_step(scene, camera, width, height, lane_pix, iteration, spp, max_bounces, st,
+                           st2, seed, bounce, ch)
 
     return tk.TripPlan(scene, camera, width, height, row0 * width, pix, spp, max_bounces,
                        rr_start, iteration, chained, shade, finish, _nee_resolve, fold,
@@ -681,11 +684,12 @@ def _trip_start(plan: tk.TripPlan):
 def _trip_setup(scene, camera, width, height, **kw):
     """The trip route's set-up (span ``tpupt.trip.setup``): the plan
     (``_trip_plan``'s arguments), the lane state at the start and the
-    trip buffers.  Returns (plan, F, I, buf)."""
+    trip buffers with the tail handover's list.  Returns (plan, F, I,
+    buf)."""
     with trace.span("tpupt.trip.setup"):
         plan = _trip_plan(scene, camera, width, height, **kw)
         F, I = _trip_start(plan)
-        return plan, F, I, tk.trip_buffers(plan)
+        return plan, F, I, tk.trip_buffers(plan, drain=True)
 
 
 def _run_trips(plan, F, I, buf):
@@ -697,12 +701,29 @@ def _run_trips(plan, F, I, buf):
     ``tpupt.trip.issue``), and one 4-byte read of the lanes still to
     trace (span ``tpupt.trip.wait``).  Counts the lanes live at each
     trip's start (the segments they trace) and the lanes the trips launch
-    over.  Returns the lane state (F, I) after the last trip."""
+    over.
+
+    The tail handover: a plan without a mesh or emitters stops issuing
+    trips once the lanes still to trace fit in one resident wave of
+    ``trip_drain`` (the list ``trip_buffers`` holds; none on the CPU), and
+    ``trip_drain`` runs them to their end in one launch; one read of the
+    lanes it left, which must be none (span ``tpupt.trip.drain``; counter
+    ``trip.drain_lanes``).  Returns the lane state (F, I) after the last
+    trip."""
     scene = plan.scene
     tre = (scene.tre_min, scene.tre_max, scene.tre_tris, scene.s_leaf_size)
+    wave = buf.drain_cap  # 0 for a plan with a mesh or emitters, and on the CPU
     remaining, trips, live = plan.n, 0, 0
     for _ in range(plan.trips_bound):
         if remaining == 0:
+            break
+        if remaining <= wave:
+            with trace.span("tpupt.trip.drain"):
+                tk.trip_drain(plan, F, I, buf, plan.trips_bound - trips)
+                left = int(buf.count)
+            trace.count("trip.drain_lanes", remaining)
+            if left:
+                raise RuntimeError(f"trip_drain left {left} of {remaining} lanes to trace")
             break
         trips, live = trips + 1, live + remaining
         with trace.span("tpupt.trip.issue"):

@@ -1,6 +1,6 @@
 """The forward trip as hand-written CUDA kernels, ``trip_head``,
-``trip_nee`` and ``trip_tail`` (``accel/csrc/trip_kernels.cu``), and their
-torch twins.
+``trip_nee`` and ``trip_tail`` (``accel/csrc/trip_kernels.cu``), the tail
+handover's ``trip_drain``, and their torch twins.
 
 In the JAX package the trips of ``_render_chained`` and the bounces of the
 forward ``trace_sample`` run in one ``lax.while_loop``, compiled by XLA
@@ -35,6 +35,11 @@ A trip of a scene with emitters (next-event estimation, NEE) is
                  ``integrator._nee_resolve``'s order, roulette, the fold
                  and restart, the lanes left.
 
+Once the lanes still to trace fit in one resident wave of ``trip_drain``
+(a scene without meshes or emitters, on the card), ``trip_drain`` runs
+them to their end in one launch, each lane's trips those above in one
+thread: the sparse tail of a large render without a trip a bounce.
+
 The lane state lives in two SoA buffers that the kernels update in place,
 one lane per thread: ``F`` (len(F_KEYS), N) float32 and ``I``
 (len(I_KEYS), N) int32, the seed kept as its uint32 bits.  ``pack_state``
@@ -55,6 +60,7 @@ their inputs.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import types
@@ -189,8 +195,9 @@ class TripPlan:
     finish: Callable
     # resolve(terms, lits, like): ``_nee_resolve``, NEE's sum
     resolve: Callable
-    # fold(state, state after the body, seed, bounce, chain):
-    # ``_chain_step``, the next trip's (state, seed, bounce, chain)
+    # fold(state, state after the body, seed, bounce, chain, pix):
+    # ``_chain_step`` on the lanes of pixels ``pix``, the next trip's
+    # (state, seed, bounce, chain)
     fold: Callable
     # the kinds of NEE's terms in ``integrator._nee_samples``'s order
     # (``NeeTerm.kind``; empty without emitters)
@@ -292,7 +299,14 @@ class TripBuffers:
     term t in packets [t * np, (t + 1) * np); for a scene with a mesh
     ``nee_rows`` (8, T * np, 256) f32, the shadow rays packed as
     ``packets._pack_rows`` packs them with the window's end as the t cap
-    (a lane outside the mask: its -BIG seed only)."""
+    (a lane outside the mask: its -BIG seed only).
+
+    For the trip loop (``trip_buffers(plan, drain=True)``), without a mesh
+    or emitters, on the card, the tail handover's list:
+    ``drain_ids`` (cap,) i32, the lanes ``trip_drain`` runs, cap = the
+    lanes of one resident wave of it or the plan's lanes, whichever is
+    fewer, and ``drain_len`` (1,) i32, the lanes it found (``drain_cap``:
+    0 where there is no list)."""
 
     hrec: torch.Tensor
     hint: torch.Tensor
@@ -303,6 +317,12 @@ class TripBuffers:
     nee_contrib: torch.Tensor | None = None
     nee_mask: torch.Tensor | None = None
     nee_rows: torch.Tensor | None = None
+    drain_ids: torch.Tensor | None = None
+    drain_len: torch.Tensor | None = None
+
+    @property
+    def drain_cap(self) -> int:
+        return 0 if self.drain_ids is None else self.drain_ids.shape[0]
 
     @functools.cached_property
     def sweep_rows(self) -> dict:
@@ -316,7 +336,10 @@ class TripBuffers:
         return dict(zip(_ROW_KEYS, self.nee_rows.unbind(0)))
 
 
-def trip_buffers(plan: TripPlan) -> TripBuffers:
+def trip_buffers(plan: TripPlan, drain: bool = False) -> TripBuffers:
+    """The trip buffers of ``plan``; with ``drain`` also the tail
+    handover's list where the plan can hand over (``_run_trips``'s loop;
+    the differentiable trip never does)."""
     dev, n = plan.scene.device, plan.n
     np_ = plan.n_pad // PACKET
     buf = TripBuffers(
@@ -335,7 +358,25 @@ def trip_buffers(plan: TripPlan) -> TripBuffers:
         if plan.mesh:
             buf.nee_rows = torch.zeros((len(_ROW_KEYS), t * np_, PACKET), dtype=torch.float32,
                                        device=dev)
+    cap = 0 if not drain or plan.mesh or plan.nee else min(n, drain_wave(plan))
+    if cap:  # written by trip_drain before it reads them: no fill kernel
+        buf.drain_ids = torch.empty((cap,), dtype=torch.int32, device=dev)
+        buf.drain_len = torch.empty((1,), dtype=torch.int32, device=dev)
     return buf
+
+
+def drain_wave(plan: TripPlan) -> int:
+    """The lanes one resident wave of ``trip_drain`` holds on the plan's
+    device: the kernel's CTAs resident at once times their threads, found
+    once per device.  0 on the CPU, where no wave bounds the twin: the
+    twin trips run to the end there, as the body route's do."""
+    if plan.scene.device.type != "cuda":
+        return 0
+    lib = kernels.load()
+    lanes = ctypes.c_int(0)
+    kernels.check(lib, lib.tpupt_trip_drain_wave(plan.tables.table.numel(), ctypes.byref(lanes)),
+                  "trip_drain")
+    return lanes.value
 
 
 # --- the twins ----------------------------------------------------------------
@@ -450,7 +491,7 @@ def trip_tail_plain(plan: TripPlan, F, I, buf: TripBuffers, sweep=None, occ=None
         ids, hit = _trip_hit(plan, st, buf, sweep)
         st2 = plan.finish(plan.shade(st, seed, bounce, ids, hit)[0], seed, bounce, None)
     if plan.chained:
-        st, seed, bounce, chain = plan.fold(st, st2, seed, bounce, chain)
+        st, seed, bounce, chain = plan.fold(st, st2, seed, bounce, chain, plan.pix)
         left = ~chain["done"]
     else:
         chain = dict(chain, segs=chain["segs"] + st["alive"].long())
@@ -460,6 +501,47 @@ def trip_tail_plain(plan: TripPlan, F, I, buf: TripBuffers, sweep=None, occ=None
     F.copy_(F2)
     I.copy_(I2)
     buf.count.copy_(left.sum().reshape(1))
+    return F, I
+
+
+def _to_trace(plan: TripPlan, I) -> torch.Tensor:
+    """The lanes still to trace: not done (chained), else alive."""
+    return I[_I["done"]] == 0 if plan.chained else I[_I["alive"]] != 0
+
+
+def trip_drain_plain(plan: TripPlan, F, I, buf: TripBuffers, trips: int):
+    """Torch twin of ``trip_drain``: the lanes still to trace, in lane
+    order, listed into ``buf.drain_ids`` as far as it holds them (all of
+    them where ``buf`` has no list) and counted into ``buf.drain_len``;
+    the listed lanes' columns of F and I run as a plan of their own (their
+    pixels) through ``trip_head_plain`` and ``trip_tail_plain`` until none
+    is left to trace or ``trips`` trips have run, then written back, each
+    lane's bounce counter as its last trip left it; ``buf.count`` the
+    lanes left to trace (chained: not done) and those not listed.
+    Returns (F, I)."""
+    ids = torch.nonzero(_to_trace(plan, I)).reshape(-1)
+    listed = ids[:buf.drain_cap] if buf.drain_ids is not None else ids
+    if buf.drain_ids is not None:
+        buf.drain_ids[:listed.shape[0]].copy_(listed)
+        buf.drain_len.fill_(ids.shape[0])
+    sub = dataclasses.replace(plan, pix=plan.pix[listed])
+    Fs, Is = F[:, listed], I[:, listed]
+    sbuf = trip_buffers(sub)
+    bounce = Is[_I["bounce"]].clone()
+    left = sub.n
+    for _ in range(trips):
+        if left == 0:
+            break
+        live = _to_trace(sub, Is)
+        trip_head_plain(sub, Fs, Is, sbuf)
+        trip_tail_plain(sub, Fs, Is, sbuf)
+        bounce = torch.where(live, Is[_I["bounce"]], bounce)
+        left = int(sbuf.count)
+    Is[_I["bounce"]] = bounce
+    F[:, listed] = Fs
+    I[:, listed] = Is
+    still = int((Is[_I["done"]] == 0).sum()) if plan.chained else 0
+    buf.count.fill_(still + ids.shape[0] - listed.shape[0])
     return F, I
 
 
@@ -618,6 +700,42 @@ def trip_tail(plan: TripPlan, F, I, buf: TripBuffers, sweep=None, occ=None):
             plan.scene.s_tri_light_count, *nee, buf.count.data_ptr(), kernels.stream_of(F))
         kernels.check(lib, err, "trip_tail")
         trace.launched("trip_tail")
+    else:
+        buf.count.zero_()
+    return F, I
+
+
+def trip_drain(plan: TripPlan, F, I, buf: TripBuffers, trips: int):
+    """The rest of a render of a scene without meshes or emitters for the
+    lane state (F, I), updated in place: the lanes still to trace (not
+    done, chained; else alive) listed into ``buf.drain_ids``, and each run
+    on its own, trip after trip, until it is done (chained) or dead, or
+    ``trips`` trips have run.  ``buf.count`` then holds the lanes left to
+    trace (chained: not done) and those the list could not hold: 0 after a
+    whole drain.  A lane's outputs are those of the issued trips; its
+    bounce counter (which nothing reads once it is done) stops at its last
+    trip.  Returns (F, I).  Launches are counted under "trip_drain"
+    (``utils.trace``)."""
+    if F.device.type == "cpu":
+        return trip_drain_plain(plan, F, I, buf, trips)
+    lib = _check("trip_drain", plan, F, I, buf)
+    kernels.require(not (plan.mesh or plan.nee), "trip_drain: the scene has a mesh or emitters")
+    kernels.require(buf.drain_ids is not None and buf.drain_ids.dtype == torch.int32
+                    and buf.drain_ids.device == F.device and buf.drain_ids.is_contiguous()
+                    and buf.drain_len is not None and tuple(buf.drain_len.shape) == (1,)
+                    and buf.drain_len.dtype == torch.int32 and buf.drain_len.device == F.device,
+                    "trip_drain: buf must hold the list (drain_ids, drain_len int32 on F's device)")
+    tabs = plan.tables
+    rr = _NO_RR if plan.rr_start is None else int(plan.rr_start)
+    if plan.n:
+        err = lib.tpupt_trip_drain(
+            F.data_ptr(), I.data_ptr(), plan.n, tabs.table.data_ptr(), tabs.table.numel(),
+            tabs.n_sph, tabs.mat_off, tabs.obj_off, tabs.bg_off, tabs.cam.data_ptr(), plan.pix0,
+            plan.width, plan.height, plan.iteration, plan.spp, plan.max_bounces, rr,
+            int(plan.chained), int(trips), buf.drain_ids.data_ptr(), buf.drain_cap,
+            buf.drain_len.data_ptr(), buf.count.data_ptr(), kernels.stream_of(F))
+        kernels.check(lib, err, "trip_drain")
+        trace.launched("trip_drain")
     else:
         buf.count.zero_()
     return F, I

@@ -3,11 +3,12 @@ launch counts.
 
 A span (``span(name)``) marks a stage of the program: a render
 (``tpupt.render``), a trip's issue and its read of the lanes left
-(``tpupt.trip.issue``, ``tpupt.trip.wait``), a sample's set-up, a
-bounce, a backward pass.  It records only while a ``torch.profiler``
-session is active (``enabled()``: the benchmark's traced window, the
-CLI's ``--profile``); otherwise entering it costs one call of that flag
-and nothing else, no profiler range, no clock read, no CUDA event.
+(``tpupt.trip.issue``, ``tpupt.trip.wait``), the tail handover
+(``tpupt.trip.drain``), a sample's set-up, a bounce, a backward pass.
+It records only while a ``torch.profiler`` session is active
+(``enabled()``: the benchmark's traced window, the CLI's ``--profile``);
+otherwise entering it costs one call of that flag and nothing else, no
+profiler range, no clock read, no CUDA event.
 While it records, it opens a profiler range of that name, so the span
 lands in the profiler's trace on the device operations' clock, and adds
 its host seconds (the range's own cost included) to an in-memory
@@ -45,7 +46,7 @@ _range = torch._C._profiler._RecordFunctionFast
 # the hand-written kernels whose launches are counted, by the name their
 # wrapper counts them under
 KERNELS = ("treelet_closest_hit", "treelet_closest_hit(payload=True)", "treelet_any_hit",
-           "winner_step", "trip_head", "trip_nee", "trip_tail", "diff_trip_fwd",
+           "winner_step", "trip_head", "trip_nee", "trip_tail", "trip_drain", "diff_trip_fwd",
            "diff_trip_bwd", "slot_scatter")
 _launches = dict.fromkeys(KERNELS, 0)
 
