@@ -46,7 +46,11 @@ handover: three_balls.json at 512^2, 64 spp, 50 bounces (more lanes than
 one resident wave of trip_drain) through its issued sphere-only trips,
 two of them held to their twins, and trip_drain, held to
 trip_drain_plain from the render's own handover state; the render equal
-to the issued trips run to the end.  Every phase prints its wall.
+to the issued trips run to the end.  Then the lit mesh trip route against
+the benchmark's plain references: the Cornell box of *Ray Tracing: The
+Next Week* at 512^2 (``h100bench/reference/pathtrace_scene.py``, its
+black background read) and the rows of cornell_area.json at 2048^2 that
+the cull's repair brought back (``pathtrace.py``), 16 spp, 50 bounces.  Every phase prints its wall.
 
     python chip_smoke.py
 
@@ -3083,6 +3087,74 @@ print(f"trip_drain from the handover state: the whole state, the count and the l
       f"{drain_bytes / 1e6:.1f} MB, {drain_flops / 1e9:.4f} GFLOP; bound {drain_bound_ms:.4f} ms "
       f"({drain_bound_by}), {drain_bound_ms / drain_dev_ms:.1%} of it  [{smi}]", flush=True)
 del tb_scene, tb_buf, tb_kept, handover, F0, I0, Fk, Ik, Fp, Ip, bk, bp
+
+# --- 20 ------------------------------------------------------------------
+phase("20 lit mesh renders against the benchmark's plain reference: the Cornell box of Ray "
+      "Tracing: The Next Week (h100bench's cornell_box) at 512^2 and cornell_area.json's rows "
+      "that the cull's repair brought back at 2048^2; 16 spp, 50 bounces, the trip route")
+from h100bench import run as bench_run  # noqa: E402
+from h100bench.reference import pathtrace as bench_ref  # noqa: E402
+from h100bench.reference import pathtrace_scene as bench_ref_scene  # noqa: E402
+
+# rows of cornell_area.json at 2048^2 whose pixels the trip route left off
+# the reference before the repair: {sample start: rows} (job 1 of seeds
+# 2147492001 and 2147492003)
+LIT_AREA_ROWS = {8369: [1686], 8371: [33, 1199]}
+
+
+def lit_rows_check(label, path, size, start, rows, ref=bench_ref, background=False):
+    """``rows`` (None: all) of ``path``'s render at ``size``^2, 16 spp, 50
+    bounces, no roulette, on the trip route, against the plain reference
+    ``ref`` (the scene's background color read where ``background``): no
+    pixel off outside ties, and every trip the sweep, trip_nee and
+    any-hit."""
+    desc = scene_from_json(path, honor_background=background)
+    scn = desc.build(leaf_size=32, device=DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    if rows is None:
+        lit_buf, _ = tpupt_torch.render_image(scn, desc.camera, size, size, spp=16,
+                                              max_bounces=50, rr_start=None, start_iteration=start)
+        got = [lit_buf.color, lit_buf.normal, lit_buf.depth]
+        rows = list(range(size))
+    else:
+        parts = [tpupt_torch.render_image(scn, desc.camera, size, size, spp=16, max_bounces=50,
+                                          rr_start=None, start_iteration=start, row0=r,
+                                          rows=1)[0] for r in rows]
+        got = [torch.cat([getattr(b, k) for b in parts]) for k in ("color", "normal", "depth")]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    r = torch.tensor(rows, dtype=torch.int64, device=DEV)
+    pix = (r[:, None] * size + torch.arange(size, device=DEV)).reshape(-1)
+    t0 = time.perf_counter()
+    *want, _, tied = ref.render_forward(ref.load_scene(path, DEV), size, size, 16, 50, start,
+                                        pix=pix)
+    ref_s = time.perf_counter() - t0
+    off = torch.zeros_like(tied)
+    for a, b in zip(got, want):
+        off |= (a != b).reshape(a.shape[0], -1).any(dim=1)
+    n_off = int((off & ~tied).sum())
+    trips = counts["trip_tail"]
+    print(f"{label}: {len(rows)} rows, {int(tied.sum())} tied pixels, {n_off} off the reference; "
+          f"{trips} trips, launches {({k: counts[k] for k in ('trip_head', 'treelet_closest_hit', 'trip_nee', 'treelet_any_hit', 'trip_tail')})}; "
+          f"render {wall:.2f} s, reference {ref_s:.1f} s", flush=True)
+    assert n_off == 0, label
+    assert trips > 0 and all(counts[k] == trips for k in (
+        "trip_head", "trip_nee", "treelet_closest_hit", "treelet_any_hit")), counts
+    return dict(rows=len(rows), tied=int(tied.sum()), off=n_off, trips=trips)
+
+
+cb_path = bench_run.prepare(ROOT, bench_run.load_json(bench_run.HERE, "configs",
+                                                      "cornell_box.json"))
+lit_checks = {"cornell_box_512": lit_rows_check("the Cornell box, 512^2", cb_path, 512, 9001,
+                                                None, bench_ref_scene, True)}
+ensure_models(names=["quad.obj"])
+area_path = os.path.join(locate_asset_path(), "scenes", "cornell_area.json")
+for start, rows in LIT_AREA_ROWS.items():
+    lit_checks[f"cornell_area_{start}"] = lit_rows_check(
+        f"cornell_area.json 2048^2 from sample {start}, the rows of the pixels the repair "
+        f"brought back", area_path, 2048, start, rows)
 phase("report")
 print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_WALLS.items())
       + f"; total {time.perf_counter() - T_START:.1f} s")
@@ -3296,6 +3368,7 @@ report = {
                     ajax_white_hi=dict(treelets=K_hi, smem_bytes=hi_smem, build_s=hi_build_s)),
     "harness": harness_info,
     "scaling": scaling_line,
+    "lit_mesh_vs_reference": lit_checks,
     "phase_walls_s": PHASE_WALLS,
 }
 with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:

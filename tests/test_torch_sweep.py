@@ -39,6 +39,7 @@ from tpupt_torch.accel import packets, step_kernel
 from tpupt_torch.core.vec import Vec3
 from tpupt_torch.render.intersect import slot_tri_table
 from tpupt_torch.scene.bake import rebake_treelets
+from tpupt_torch.scene.description import SceneDescription
 
 # the test tensors are small, so torch's intra-op thread pool only adds
 # overhead (a ~1k-ray twin sweep: 6.5 s on 8 threads, 0.2 s on one)
@@ -141,18 +142,50 @@ def _tie_rays():
     return [np.asarray(c) for v in tie_grid_rays()[:2] for c in v]
 
 
-@pytest.mark.parametrize("case", ["pixel_grid", "tie_grid"])
+def object_tie_description(desc_cls):
+    """Two objects holding the same quad at z = 0 (every ray down onto it
+    meets both at exactly one t); the later one also holds a small
+    triangle at z = 1, so its treelet's entry is the nearer and a walk
+    visits it first."""
+    quad = [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]]
+    near = quad + [[-1, -1, 1], [-0.9, -1, 1], [-1, -0.9, 1]]
+    d = desc_cls()
+    d.add_material("m", "lambertian", albedo=(0.5, 0.5, 0.5))
+    d.add_mesh("quad", np.asarray(quad, np.float32), np.asarray([[0, 1, 2], [0, 2, 3]], np.int32))
+    d.add_mesh("quad_and_near", np.asarray(near, np.float32),
+               np.asarray([[0, 1, 2], [0, 2, 3], [4, 5, 6]], np.int32))
+    d.add_mesh_object("quad", np.eye(4), "m")
+    d.add_mesh_object("quad_and_near", np.eye(4), "m")
+    return d
+
+
+def object_tie_rays():
+    """rox..rdz of rays straight down from z = 3 onto the quad, clear of
+    the small triangle."""
+    g = np.linspace(-0.83, 0.77, 24, dtype=np.float32)
+    x, y = (a.reshape(-1) for a in np.meshgrid(g, g + np.float32(0.013), indexing="ij"))
+    one = np.ones_like(x)
+    return [x, y, 3.0 * one, 0.0 * one, 0.0 * one, -one]
+
+
+@pytest.mark.parametrize("case", ["pixel_grid", "tie_grid", "object_tie"])
 def test_intersect_treelets_payload_matches_jax(ico, case):
     """diff_payload=True: the port's twin against the JAX package's sweep,
-    on test_pallas_sweep.py's scene and on two coplanar copies of the tie
-    grid (every hit an exact-t tie, won by the later visit)."""
+    on test_pallas_sweep.py's scene, on two coplanar copies of the tie
+    grid (every hit an exact-t tie, won by the later visit), and on two
+    objects tied at every hit where the later object's treelet is visited
+    first (the earlier object, visited later, wins)."""
     if case == "pixel_grid":
         jscene, pscene = ico
         comps = _grid_rays()
-    else:
+    elif case == "tie_grid":
         jscene = tie_grid_description(2, desc_cls=JaxDescription).build()
         pscene = tie_grid_scene(2)
         comps = _tie_rays()
+    else:
+        jscene = object_tie_description(JaxDescription).build()
+        pscene = object_tie_description(SceneDescription).build(device="cpu")
+        comps = object_tie_rays()
     n = comps[0].shape[0]
     t_min = np.full(n, 1e-4, np.float32)
     t_seed = np.full(n, 3.0e38, np.float32)
@@ -162,6 +195,8 @@ def test_intersect_treelets_payload_matches_jax(ico, case):
     pout = _port_treelets(pscene, comps, t_min, t_seed, active, diff_payload=True)
     hit = _check_against_jax(jout, pout)
     assert hit.sum() > 100 and not hit.all()
+    if case == "object_tie":
+        assert (pout[2]["obj"].numpy()[hit] == 0).all()
     assert set(pout[2]) == set(jout[2])
     for k in packets._DIFF_KEYS:
         np.testing.assert_array_equal(pout[2][k].numpy(), np.asarray(jout[2][k]), err_msg=k)

@@ -3,7 +3,11 @@
 benchmark's per-layer metrics read them.
 
 * With no profiler active a span opens no ``record_function``, reads no
-  clock and records no CUDA event, and nothing is aggregated.
+  clock and records no CUDA event, and nothing is aggregated; a lit mesh
+  render still asks for its sweep and NEE spans on every trip.
+* Under the profiler a lit mesh render records one ``tpupt.trip.sweep``
+  and one ``tpupt.trip.nee`` a trip, inside that trip's
+  ``tpupt.trip.issue``.
 * Under ``torch.profiler`` a 16x16, 2-spp trip-route render on the CPU
   twins counts one ``tpupt.trip.wait`` a ``trip_tail`` call, the lanes
   live at each trip's start summing to the render's segments, and every
@@ -70,6 +74,25 @@ def _scene(mesh=False):
     return d.build(device="cpu"), make_camera(vfov=np.pi / 2.5)
 
 
+def _lit_scene():
+    """``_scene(mesh=True)`` with an emissive quad above it: a trip runs the
+    closest-hit sweep, ``trip_nee`` and the any-hit sweep."""
+    d = SceneDescription(bg_down=(1.0, 0.9, 0.8), bg_up=(0.4, 0.6, 1.0))
+    d.add_material("ground", "lambertian", albedo=(0.8, 0.8, 0.7))
+    d.add_material("chrome", "metal", albedo=(0.85, 0.85, 0.9), fuzz=0.2)
+    d.add_material("lamp", "diffuse_light", emit=(6.0, 5.5, 5.0))
+    d.add_sphere(100.0, np.asarray(m3.mat_translate([0, -100.5, -1]), np.float64), "ground")
+    d.add_sphere(0.4, np.asarray(m3.mat_translate([0.6, -0.1, -1.1]), np.float64), "chrome")
+    v, f = icosphere(1)
+    d.add_mesh("ico", v, f)
+    d.add_mesh_object("ico", np.asarray(m3.mat_translate([0.1, 0.2, -1.6]), np.float64)
+                      @ np.diag([0.3, 0.3, 0.3, 1.0]), "ground")
+    quad = np.asarray([[-0.5, 0, -0.5], [0.5, 0, -0.5], [0.5, 0, 0.5], [-0.5, 0, 0.5]], np.float32)
+    d.add_mesh("quad", quad, np.asarray([[0, 1, 2], [0, 2, 3]], np.int32))
+    d.add_mesh_object("quad", np.asarray(m3.mat_translate([0, 1.2, -1.2]), np.float64), "lamp")
+    return d.build(device="cpu"), make_camera(vfov=np.pi / 2.5)
+
+
 @pytest.fixture(autouse=True)
 def _fresh():
     trace.reset()
@@ -103,10 +126,11 @@ def _refuse(*_a, **_k):
     raise AssertionError("touched while no profiler is active")
 
 
-@pytest.mark.parametrize("what", ["span", "timed span", "count", "render"])
+@pytest.mark.parametrize("what", ["span", "timed span", "count", "render", "lit mesh render"])
 def test_no_profiler_costs_only_the_flag(monkeypatch, what):
     """No profiler: no record_function, no clock read, no CUDA event, and
-    the aggregates stay empty."""
+    the aggregates stay empty; a lit mesh render asks for its sweep and
+    NEE spans on every trip all the same (the flag is all they cost)."""
     assert not trace.enabled()
     monkeypatch.setattr(torch.profiler, "record_function", _refuse)
     monkeypatch.setattr(trace, "_range", _refuse)
@@ -115,6 +139,20 @@ def test_no_profiler_costs_only_the_flag(monkeypatch, what):
         scene, cam = _scene()
         _, rays = tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=6)
         assert int(rays) > 0
+    elif what == "lit mesh render":
+        asked = []
+        span = trace.span
+
+        def asking(name, device=None):
+            asked.append(name)
+            return span(name, device)
+
+        monkeypatch.setattr(trace, "span", asking)
+        tails = _counting(monkeypatch, tk, "trip_tail")
+        scene, cam = _lit_scene()
+        _, rays = tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=6)
+        assert int(rays) > 0
+        assert asked.count("tpupt.trip.sweep") == asked.count("tpupt.trip.nee") == len(tails) > 0
     else:
         monkeypatch.setattr(time, "perf_counter_ns", _refuse)
         if what == "count":
@@ -146,6 +184,28 @@ def test_trip_counters_under_the_profiler(monkeypatch, mode):
     assert s["tpupt.render"]["count"] == 1
     assert all(v["device_s"] is None for v in s.values())  # no card: no event
     assert 0 < c["trip.live_lanes"] < c["trip.lanes_launched"]
+
+
+def test_sweep_and_nee_spans_under_the_profiler(monkeypatch):
+    """A lit mesh render under the profiler: one tpupt.trip.sweep and one
+    tpupt.trip.nee a trip, each inside its trip's tpupt.trip.issue (in
+    the profiler's events and in host time)."""
+    scene, cam = _lit_scene()
+    tails = _counting(monkeypatch, tk, "trip_tail")
+    _, prof = _profiled(lambda: tpupt_torch.render_image(scene, cam, W, H, SPP, max_bounces=6))
+    s = trace.snapshot()["spans"]
+    trips = len(tails)
+    assert trips > 1
+    for k in ("tpupt.trip.issue", "tpupt.trip.sweep", "tpupt.trip.nee", "tpupt.trip.wait"):
+        assert s[k]["count"] == trips, k
+    assert s["tpupt.trip.sweep"]["host_s"] + s["tpupt.trip.nee"]["host_s"] \
+        < s["tpupt.trip.issue"]["host_s"]
+    events = [e for e in prof.events() if e.name.startswith("tpupt.trip.")]
+    issues = [e.time_range for e in events if e.name == "tpupt.trip.issue"]
+    inner = [e.time_range for e in events if e.name in ("tpupt.trip.sweep", "tpupt.trip.nee")]
+    assert len(inner) == 2 * trips
+    for r in inner:
+        assert any(i.start <= r.start and r.end <= i.end for i in issues)
 
 
 def _handover(monkeypatch):

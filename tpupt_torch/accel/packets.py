@@ -5,15 +5,18 @@ Rays are folded into packets of 256 lanes.  Each packet walks the world
 treelet table front to back:
 
   cull   a treelet's packet entry distance is the min over live lanes of
-         max(near, 0) of the lane's slab test, or BIG when no live lane can
-         improve on its seed t (``_entry_dense``).  Above
+         max(near, 0) of the lane's slab test (each axis's slab moved out
+         by ``_slab_pad``, then its ends by SLAB_EPS of themselves), or
+         BIG when no live lane can improve on its seed t
+         (``_entry_dense``).  Above
          ``_TWOLEVEL_MIN_K`` treelets the packet first tests 16-treelet
          super-boxes and keeps child entries only under a hit super
          (``_cull_entries``, the JAX package's two-level cull);
   sweep  the packet takes its remaining treelets in strictly increasing
          (entry, index) order, one per step, runs Möller–Trumbore (MT) on
          all 256 x L pairs and keeps a running closest hit; it stops once
-         the next entry lies beyond every live lane's best t.
+         the next entry, lowered by SLAB_EPS of itself (``_walk_bound``),
+         lies beyond every live lane's best t.
 
 Within a treelet the earliest triangle wins an exact-t tie; across
 treelets a later visit replaces an equal t (``t <= best``).  That is the
@@ -40,6 +43,15 @@ BIG = 3.0e38
 MOLLER_EPS = 1e-7  # reference EPSILON
 _SUPER = 16  # treelets per super-box of the two-level cull
 _TWOLEVEL_MIN_K = 96  # the two-level cull runs from this treelet count on
+# The slab test and the walk's exit test move each bound out by this share
+# of itself.  The slab ts round: at a zero-thickness box's edge near can
+# pass far by an ulp or more (a quad's hit dropped), and an entry can lie
+# an ulp or more past a hit's t (the walk ends before a floor under a face
+# standing on it).  A power of two, so the product is exact and the
+# kernels round as the twin does; small beside the shadow rays' 1e-3 gap
+# before their light, so no light's treelet is visited for nothing.
+SLAB_EPS = 2.0 ** -14
+_ULP = 2.0 ** -23  # an ulp of a float32 over the power of two at or below it
 # (packets x lanes x treelets) elements per chunk of the dense cull
 _CULL_ELEMS = 1 << 22
 # per-lane ray rows the kernels take, in their argument order
@@ -87,23 +99,45 @@ def _entry_dense(bmin, bmax, rows, act_p):
         def near_far(axis, o, d):
             iv = (1.0 / rows[d][sl])[:, :, None]
             o = rows[o][sl][:, :, None]
-            t0 = (bmin[:, axis][None, None, :] - o) * iv
-            t1 = (bmax[:, axis][None, None, :] - o) * iv
-            return torch.minimum(t0, t1), torch.maximum(t0, t1)
+            lo, hi = bmin[:, axis][None, None, :], bmax[:, axis][None, None, :]
+            t0, t1 = (lo - o) * iv, (hi - o) * iv
+            return torch.minimum(t0, t1), torch.maximum(t0, t1), _slab_pad(lo, hi, o, iv)
 
-        nx0, fx0 = near_far(0, "rox", "rdx")
-        ny0, fy0 = near_far(1, "roy", "rdy")
-        nz0, fz0 = near_far(2, "roz", "rdz")
+        nx0, fx0, px = near_far(0, "rox", "rdx")
+        ny0, fy0, py = near_far(1, "roy", "rdy")
+        nz0, fz0, pz = near_far(2, "roz", "rdz")
         near = torch.maximum(torch.maximum(nx0, ny0), nz0)  # (c, p, K)
-        far = torch.minimum(torch.minimum(fx0, fy0), fz0)
+        near_p = torch.maximum(torch.maximum(nx0 - px, ny0 - py), nz0 - pz)
+        far_p = torch.minimum(torch.minimum(fx0 + px, fy0 + py), fz0 + pz)
+        near_lo = near_p - near_p.abs() * SLAB_EPS
+        far_hi = far_p + far_p.abs() * SLAB_EPS
         hit = (
-            (far >= near)
-            & (far >= rows["tmin"][sl][:, :, None])
-            & (near <= rows["t"][sl][:, :, None])
+            (far_hi >= near_lo)
+            & (far_hi >= rows["tmin"][sl][:, :, None])
+            & (near_lo <= rows["t"][sl][:, :, None])
             & act_p[sl][:, :, None]
         )
         out.append(torch.where(hit, torch.clamp(near, min=0.0), BIG).amin(dim=1))
     return torch.cat(out)
+
+
+def _slab_pad(lo, hi, o, iv):
+    """The absolute widening of one axis's slab ts: the ulp of the largest
+    coordinate its subtractions see, max(|lo|, |hi|, |o|), times |1/d|
+    (the kernels' ``slab_pad``).  A hit that Möller–Trumbore accepts a hair
+    after the origin can lie outside the exact box by that rounding, where
+    SLAB_EPS's share of t is far smaller.  An ulp, and no more: below 1024
+    it stays under the 1e-4 offset a shadow ray leaves its wall by, so the
+    wall's box still lies behind the ray."""
+    m = torch.maximum(torch.maximum(lo.abs(), hi.abs()), o.abs())
+    return (m.view(torch.int32) & 0x7F800000).view(torch.float32) * _ULP * iv.abs()
+
+
+def _walk_bound(ent):
+    """The walk's exit bound of entries ``ent`` (>= 0): the entry lowered
+    by SLAB_EPS of itself.  Monotone, so the walk still ends at the first
+    treelet whose bound lies past every live lane's best t."""
+    return ent - ent * SLAB_EPS
 
 
 def _super_boxes(bmin, bmax):
@@ -118,7 +152,8 @@ def _super_boxes(bmin, bmax):
 
 def _cull_entries(bmin, bmax, rows, act_p, stats=None):
     """(np, K) packet entry distances of the JAX package's cull
-    (``tpupt/accel/packets.py`` ``_cull_entries``): ``_entry_dense`` below
+    (``tpupt/accel/packets.py`` ``_cull_entries``), the slab test taking
+    SLAB_EPS of room at each end: ``_entry_dense`` below
     _TWOLEVEL_MIN_K treelets; from there on the two-level cull, whose
     entries are ``_entry_dense``'s under a super-box the packet hits and BIG
     elsewhere.  That masked form gives ``_entry_twolevel``'s values, also

@@ -32,7 +32,7 @@ import torch
 
 from tpupt_torch.accel import kernels
 from tpupt_torch.accel.packets import (
-    _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries, _dense_mt,
+    _DIFF_KEYS, _ROW_KEYS, BIG, PACKET, _cull_entries, _dense_mt, _walk_bound,
 )
 from tpupt_torch.accel.step_kernel import winner_step_plain
 from tpupt_torch.utils import trace
@@ -57,14 +57,17 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
     (``packets._cull_entries``), then a lockstep loop, vectorized over
     packets, that advances every live packet by ONE treelet per step
     (argmin over the remaining entries, lowest index on exact ties), runs
-    the dense step over its L pairs and keeps the closest hit.  A packet
-    whose next entry lies beyond every live lane's best t is done; it stays
-    done because neither its entries nor its t change any more.
+    the dense step over its L pairs and keeps the closest hit (a later
+    visit replaces an equal t).  A packet whose next entry, lowered by ``packets.SLAB_EPS`` of itself
+    (``packets._walk_bound``), lies beyond every live lane's best t is
+    done; it stays done because neither its entries nor its t change any
+    more.
 
     ``stats``, when a dict, gains the cull's counts (``_cull_entries``) and
     the walk's: ``visits`` (packet-treelet steps taken), ``visits_max``
-    (the most in one packet) and ``mt_pairs`` (live lanes times L, summed
-    over visits).  ``payload`` appends the winner's p0x..e2z
+    (the most in one packet), ``mt_pairs`` (live lanes times L, summed
+    over visits) and ``tri_pairs`` (live lanes times the visited treelet's
+    triangles, its pad slots left out).  ``payload`` appends the winner's p0x..e2z
     (``_payload_rows``)."""
     np_, p = rows["rox"].shape
     K = tre_min.shape[0]
@@ -72,22 +75,24 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
     entry = _cull_entries(tre_min, tre_max, rows, act_p, stats)
     live = act_p.sum(dim=1)
     visits = torch.zeros(np_, dtype=torch.int64, device=dev)
-    pairs = 0
+    pairs = tri_pairs = 0
     t = rows["t"].clone()
     slot = torch.full((np_, p), -1, dtype=torch.int32, device=dev)
     nx, ny, nz = (torch.zeros((np_, p), device=dev) for _ in range(3))
     obj = torch.full((np_, p), -1.0, device=dev)
     blocks = tre_tris.view(K, 13, leaf)
+    ntri = (blocks[:, 12, :] >= 0).sum(dim=1)  # a pad slot's object is -1
     ar = torch.arange(np_, device=dev)
     iota_l = torch.arange(leaf, dtype=torch.int32, device=dev)
     for _ in range(K):
         ent, tid = torch.min(entry, dim=1)  # first index on ties
-        valid = (ent < BIG) & (ent <= t.amax(dim=1))
+        valid = (ent < BIG) & (_walk_bound(ent) <= t.amax(dim=1))
         if not bool(valid.any()):
             break
         if stats is not None:
             visits += valid
             pairs += int(live[valid].sum()) * leaf
+            tri_pairs += int((live * ntri[tid])[valid].sum())
         entry[ar, tid] = torch.where(valid, BIG, ent)
         safe = torch.where(valid, tid, 0)
         w = winner_step_plain(
@@ -102,7 +107,8 @@ def treelet_closest_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, sta
         nz = torch.where(got, w[4], nz)
         obj = torch.where(got, w[5], obj)
     if stats is not None:
-        stats.update(visits=int(visits.sum()), visits_max=int(visits.max()), mt_pairs=pairs)
+        stats.update(visits=int(visits.sum()), visits_max=int(visits.max()), mt_pairs=pairs,
+                     tri_pairs=tri_pairs)
     out = (t, slot, nx, ny, nz, obj)
     return out + _payload_rows(tre_tris, leaf, slot) if payload else out
 
@@ -130,7 +136,7 @@ def treelet_any_hit_plain(rows, act_p, tre_min, tre_max, tre_tris, leaf, stats=N
     ray = {k: rows[k][:, None, :] for k in _ROW_KEYS[:7]}
     for _ in range(K):
         ent, tid = torch.min(entry, dim=1)  # first index on ties
-        valid = (ent < BIG) & (ent <= t.amax(dim=1))
+        valid = (ent < BIG) & (_walk_bound(ent) <= t.amax(dim=1))
         if not bool(valid.any()):
             break
         if stats is not None:

@@ -698,8 +698,10 @@ def _run_trips(plan, F, I, buf):
     sweep on its packed rows (scenes with a mesh), with emitters
     ``trip_nee`` and the any-hit sweep on its shadow rows (every NEE term
     in one call; scenes with a mesh), ``trip_tail`` (span
-    ``tpupt.trip.issue``), and one 4-byte read of the lanes still to
-    trace (span ``tpupt.trip.wait``).  Counts the lanes live at each
+    ``tpupt.trip.issue``; inside it ``tpupt.trip.sweep`` around the
+    closest-hit sweep and ``tpupt.trip.nee`` around ``trip_nee`` and the
+    any-hit sweep), and one 4-byte read of the lanes still to trace (span
+    ``tpupt.trip.wait``).  Counts the lanes live at each
     trip's start (the segments they trace) and the lanes the trips launch
     over.
 
@@ -728,12 +730,15 @@ def _run_trips(plan, F, I, buf):
         trips, live = trips + 1, live + remaining
         with trace.span("tpupt.trip.issue"):
             tk.trip_head(plan, F, I, buf)
-            sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre) \
-                if plan.mesh else None
+            sweep = occ = None
+            if plan.mesh:
+                with trace.span("tpupt.trip.sweep"):
+                    sweep = sweep_kernel.treelet_closest_hit(buf.sweep_rows, buf.act_p, *tre)
             if plan.nee:
-                tk.trip_nee(plan, F, I, buf, sweep)
-                occ = sweep_kernel.treelet_any_hit(buf.shadow_rows, buf.nee_mask, *tre) \
-                    if plan.mesh else None
+                with trace.span("tpupt.trip.nee"):
+                    tk.trip_nee(plan, F, I, buf, sweep)
+                    if plan.mesh:
+                        occ = sweep_kernel.treelet_any_hit(buf.shadow_rows, buf.nee_mask, *tre)
                 tk.trip_tail(plan, F, I, buf, occ=occ)
             else:
                 tk.trip_tail(plan, F, I, buf, sweep)

@@ -3,7 +3,9 @@ launch counts.
 
 A span (``span(name)``) marks a stage of the program: a render
 (``tpupt.render``), a trip's issue and its read of the lanes left
-(``tpupt.trip.issue``, ``tpupt.trip.wait``), the tail handover
+(``tpupt.trip.issue``, ``tpupt.trip.wait``), inside the issue the
+closest-hit sweep and next-event estimation's kernels
+(``tpupt.trip.sweep``, ``tpupt.trip.nee``), the tail handover
 (``tpupt.trip.drain``), a sample's set-up, a bounce, a backward pass.
 It records only while a ``torch.profiler`` session is active
 (``enabled()``: the benchmark's traced window, the CLI's ``--profile``);
